@@ -1,6 +1,7 @@
 # Development/CI image (reference parity: Dockerfile + docker.justfile).
-# TPU runtime images come from your accelerator platform; this image is for
-# CPU development and the test suite (8-device virtual mesh).
+# GPU runtime images come from your accelerator platform (CUDA toolkit for
+# the SGM kernel's nvcc build); this image is for CPU development and the
+# test suite (8-device virtual mesh).
 FROM python:3.12-slim
 
 RUN apt-get update && apt-get install -y --no-install-recommends \

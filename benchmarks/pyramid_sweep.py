@@ -4,13 +4,13 @@ gap vs the flat census+SGM pipeline.
 Two free knobs on the band refinement stage, both compute-cheap:
 
 * ``band_radius`` — the scan already runs the FULL disparity axis with
-  masking (the TPU-friendly formulation), so a wider band costs nothing;
+  masking (the gather-free formulation), so a wider band costs little;
 * ``band_kernel_size`` — per-plane windowed Hamming (box-summed planes),
   giving the band WTA the neighborhood support the flat census cost's
   kernel_size provides.
 
 Accuracy on the occlusion-aware synthetic scenes (exact GT, occlusions
-masked) on CPU; the TPU timing of the winning config lands in the stage
+masked) on CPU; the winning config's device time lands in the stage
 suite.  Writes benchmarks/pyramid_sweep_out.json.
 
 Usage: python benchmarks/pyramid_sweep.py [--scenes 6] [--levels 1 2]

@@ -1,13 +1,13 @@
 """Multi-chip scaling-efficiency benchmark for the sharded pipeline.
 
 Measures frames/s of the (batch, tile) mesh pipeline at increasing device
-counts on whatever devices the process can see, reporting per-chip
-throughput and scaling efficiency vs the single-device run — the
-1 chip -> 1 host -> N hosts curve BASELINE.json asks for.  On a multi-host
-pod, launch one process per host with ``--distributed``.
-
-On this repo's single-chip dev box it degenerates to n=1 (the mesh logic
-itself is validated on the 8-device virtual CPU mesh: --force-cpu).
+counts on whatever devices the process can see, reporting per-device
+throughput and scaling efficiency vs the single-device run.  With
+several hosts, launch one process per host with ``--distributed``.
+``--force-cpu`` validates the mesh logic on an 8-device virtual CPU mesh
+(its result names the CPU as the device).  ``--model`` prints the
+interconnect model's table at the published rates of ``--device-kind``
+(utils/devices.py) or of explicit ``--link-gbps``/``--hbm-gbps``.
 
 Usage:
     python benchmarks/scaling.py [--force-cpu] [--distributed]
@@ -68,14 +68,6 @@ def measure(mesh, args):
             "fps_per_chip": round(fps / n_dev, 2)}
 
 
-def ici_traffic_model(**kwargs):
-    """Moved into the package (round 4) so the parallel layer can act on
-    it: stereomatch_tpu/parallel/ici_model.py.  This alias keeps the
-    benchmark entry point and ici_model.json regeneration unchanged."""
-    from stereomatch_tpu.parallel.ici_model import ici_traffic_model as m
-    return m(**kwargs)
-
-
 def main():
     parser = argparse.ArgumentParser()
     parser.add_argument("--force-cpu", action="store_true",
@@ -97,29 +89,39 @@ def main():
     parser.add_argument("--reps", type=int, default=3)
     parser.add_argument("--json", default=None)
     parser.add_argument("--model", action="store_true",
-                        help="emit the analytic ICI traffic model table "
-                             "(no devices needed) and exit")
-    parser.add_argument("--model-tiles", type=int, default=8)
-    parser.add_argument("--ici-gbps", type=float, default=45.0)
-    parser.add_argument("--hbm-gbps", type=float, default=675.0)
+                        help="emit the analytic interconnect traffic "
+                             "model table (no devices needed) and exit")
+    parser.add_argument("--model-tiles", type=int, default=4)
+    parser.add_argument("--device-kind", default="NVIDIA H100 80GB HBM3",
+                        help="--model: take the rates published for this "
+                             "device kind (utils/devices.py)")
+    parser.add_argument("--link-gbps", type=float, default=None)
+    parser.add_argument("--hbm-gbps", type=float, default=None)
     args = parser.parse_args()
 
     if args.model:
+        from stereomatch_tpu.parallel.ici_model import ici_traffic_model
+        from stereomatch_tpu.utils.devices import device_spec
+        spec = device_spec(args.device_kind)
+        link = (spec.link_bytes_per_s / 1e9 if args.link_gbps is None
+                else args.link_gbps)
+        hbm = (spec.hbm_bytes_per_s / 1e9 if args.hbm_gbps is None
+               else args.hbm_gbps)
         rows = ici_traffic_model(height=args.height, width=args.width,
                                  disp=args.disp, tiles=args.model_tiles,
-                                 overlap=args.overlap,
-                                 ici_gbps=args.ici_gbps,
-                                 hbm_gbps=args.hbm_gbps)
+                                 overlap=args.overlap, link_gbps=link,
+                                 hbm_gbps=hbm)
         for r in rows:
-            print(f"{r['config']:20s} ici={r['ici_bytes_per_frame']/1e6:8.2f} MB/frame "
-                  f"({r['ici_vs_volume']:.3f} vol) stages={r['serial_stages']:3d} "
+            print(f"{r['config']:20s} "
+                  f"link={r['link_bytes_per_frame']/1e6:8.2f} MB/frame "
+                  f"({r['link_vs_volume']:.3f} vol) "
+                  f"stages={r['serial_stages']:3d} "
                   f"eff={r['predicted_efficiency']:.3f}  {r['note']}",
                   file=sys.stderr)
         payload = {"model": True,
                    "params": {"height": args.height, "width": args.width,
                               "disp": args.disp, "tiles": args.model_tiles,
-                              "ici_gbps": args.ici_gbps,
-                              "hbm_gbps": args.hbm_gbps},
+                              "link_gbps": link, "hbm_gbps": hbm},
                    "rows": rows}
         if args.json:
             with open(args.json, "w") as f:
@@ -150,11 +152,14 @@ def main():
     from stereomatch_tpu.parallel.mesh import make_hybrid_mesh
 
     devices = jax.devices()
+    if devices[0].platform == "cpu" and not args.force_cpu:
+        sys.exit("scaling: no accelerator (pass --force-cpu for the CPU "
+                 "logic check)")
     rows = []
     if jax.process_count() > 1:
         # Multi-process SPMD: every process must join every computation,
         # so measure only the full hybrid mesh (frames over hosts, rows
-        # in-host) — the DCN-axis data point BASELINE.json asks for.
+        # in-host).
         rows.append(measure(make_hybrid_mesh(), args))
     else:
         n = 1
@@ -169,7 +174,10 @@ def main():
               f"fps={row['fps']:9.2f} /chip={row['fps_per_chip']:8.2f} "
               f"eff={row['scaling_efficiency']:.2f}", file=sys.stderr)
 
-    payload = {"device_kind": devices[0].device_kind, "rows": rows}
+    from stereomatch_tpu.utils.benchmarking import card
+    payload = {"device_kind": devices[0].device_kind,
+               "platform": devices[0].platform, "count": len(devices),
+               "card": card(), "rows": rows}
     if args.json:
         with open(args.json, "w") as f:
             json.dump(payload, f, indent=2)

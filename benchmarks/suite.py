@@ -5,13 +5,16 @@ Geometries follow the reference fixtures: cost benchmarks on a 512x256
 pair at D=32 (tests/conftest.py:23,86), aggregation/reduce on the
 full-resolution teddy shape 450x375 at D=128 (tests/conftest.py:58-78).
 
-Timing methodology: marginal cost of one op inside a data-dependent
-fori_loop chain compiled as one program — (t(chain_K) - t(chain_1))/(K-1) —
-which cancels dispatch and host-transfer constants that some PJRT
-transports add per call (see bench.py).
+Timing: each benchmark body is one jitted program; after warm-up calls
+(compilation), the median of ``--repeats`` calls that each end in
+``block_until_ready`` (utils/benchmarking.py).  The roofline share is the
+op's minimum memory traffic at the device's published bandwidth
+(utils/devices.py) over its time; a large copy's achieved bandwidth is
+measured in the same run and reported beside it.  Every run names the
+device and the card's power limit, and fails without an accelerator.
 
 Usage:
-    python benchmarks/suite.py [--json OUT.json] [--chain K] [--repeats R]
+    python benchmarks/suite.py [--json OUT.json] [--repeats R] [--only S]
 """
 
 import argparse
@@ -27,11 +30,9 @@ sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 # directly comparable benchmark.
 REFERENCE_MS = {
     "ssd_cost_512x256_d32": 2.49,
-    "ssd_cost_pallas_512x256_d32": 2.49,
     # The reference has no SAD benchmark (SAD is beyond its cost surface),
-    # so the SAD rows carry no reference ratio by design.
+    # so the SAD row carries no reference ratio by design.
     "sad_cost_512x256_d32": None,
-    "sad_cost_pallas_512x256_d32": None,
     "ssd_texture_512x256_d32": 7.29,
     "birchfield_cost_512x256_d32": 2.99,
     "sgm_450x375_d128": 6.99,
@@ -49,10 +50,9 @@ def _vol_bytes(h, w, d, itemsize=4):
 
 # Speed-of-light HBM traffic model per benchmark: the minimum bytes each
 # op must move (volume-sized reads/writes only; images and disparity maps
-# are negligible beside the [H,W,D] volume).  Stages are memory-bound on
-# TPU, so pct_of_roofline = sol_ms(measured BW) / measured_ms is the
-# honest "how fast is it really" number — 100% means the op runs at the
-# empirically measured copy bandwidth of this chip.
+# are negligible beside the [H,W,D] volume).  Most stages are
+# memory-bound, so pct_of_roofline = sol_ms(published bandwidth) /
+# measured_ms says how far each is from the device's limit.
 def _traffic_models():
     v1 = _vol_bytes(256, 512, 32)          # cost group
     v2 = _vol_bytes(375, 450, 128)         # teddy group
@@ -64,8 +64,6 @@ def _traffic_models():
         "birchfield_cost_512x256_d32": v1,
         "census_cost_512x256_d32": v1,
         "sad_cost_512x256_d32": v1,
-        "ssd_cost_pallas_512x256_d32": v1,
-        "sad_cost_pallas_512x256_d32": v1,
         # ZNCC streams six stacked statistic planes through the box
         # filter and writes the volume: ~7 volume-sized transfers.
         "zncc_cost_512x256_d32": 7 * v1,
@@ -97,17 +95,15 @@ def _traffic_models():
         # f32-volume unit) for the sub-pixel one-hot sweep
         "pipeline_census_bf16_refined_teddy": 5 * v2 // 2,
         "pipeline_hd_census_bf16_d256": 2 * v3,
-        # HD CVF (round 5): the fused kernel's working set cannot fit the
-        # 16 MB VMEM at W=1280/D=256 (benchmarks/cvf_ring_probe_r5), so
-        # this is the XLA wedge path's 8 box passes: ~8 volume
-        # read+writes, floor quoted as read+write like the teddy row.
+        # HD CVF: the XLA wedge path's 8 box passes, floor quoted as
+        # read+write like the teddy row.
         "cvf_hd_1024x1280_d256": 2 * v3,
         "cvf_hd_bf16_1024x1280_d256": v3,
         "pipeline_hd_census_cvf_d256": 4 * v3,
         "pipeline_hd_census_cvf_bf16_d256": 2 * v3,
         # pyramid: full census pipeline on a volume 8x smaller per level
-        # (4 volume-sized transfers); the band stages are VPU-bound
-        # streaming scans whose HBM traffic is only images/codes/maps
+        # (4 volume-sized transfers); the band stages are compute-bound
+        # streaming scans whose memory traffic is only images/codes/maps
         # (~8 [H, W] i32 arrays per level) — so %SoL is meaningless for
         # these rows and low values do NOT mean headroom.
         "pipeline_pyramid1_teddy_d128":
@@ -120,20 +116,19 @@ def _traffic_models():
         "pipeline_pyramid2_hd_d256":
             4 * v3 // 64 + 8 * _vol_bytes(512, 640, 1)
             + 8 * _vol_bytes(1024, 1280, 1),
-        # temporal tracked frame: images/codes/prev/disp only (VPU-bound
+        # temporal tracked frame: images/codes/prev/disp only (compute-bound
         # band scan over the full range; %SoL not meaningful).
         "temporal_track_teddy_d128": 8 * _vol_bytes(375, 450, 1),
         "temporal_track_hd_d256": 8 * _vol_bytes(1024, 1280, 1),
-        # refine: the sub-pixel one-hot reductions stream the volume once
-        # (a per-pixel depth gather instead measured 5.5 ms — XLA:TPU
-        # lowers arbitrary gathers to scalar loops); [H,W] maps are noise.
+        # refine: the sub-pixel one-hot reductions stream the volume once;
+        # [H,W] maps are noise.
         "refine_median_subpixel_teddy_d128": v2,
         # speckle: disparity in, mask+fill out — everything else is
-        # VPU-resident shifted compares.
+        # on-chip shifted compares.
         "speckle_filter_teddy_450x375": 2 * _vol_bytes(375, 450, 1),
         # wmf: disparity + guide in, median out; the window^2 one-hot
-        # histogram accumulation over the bin lane axis is pure VPU work
-        # (window^2 * D ops/pixel), so %SoL vs HBM is not the bound.
+        # histogram accumulation over the bin axis is compute work
+        # (window^2 * D ops/pixel), so %SoL vs memory is not the bound.
         "wmf_teddy_450x375_d128": 3 * _vol_bytes(375, 450, 1),
         # fgs: 3 iterations x (row + column) tridiagonal solves — six
         # sequential scan pairs over [H, W] planes; traffic is a few
@@ -142,109 +137,26 @@ def _traffic_models():
     }
 
 
-# v5e HBM spec: no copy can move bytes faster than the part's 819 GB/s.
-# Probes reading ABOVE it are measurement noise (the relay's timing
-# jitter shrinking a marginal), not speed — they are clamped out of the
-# max, the mirror image of round-2's single under-reading probe.
-_HBM_SPEC_GBPS = 819.0
-
-
-def measure_hbm_bandwidth(chain_k=8, repeats=5):
-    """Achievable HBM GB/s: the MAX over independent copy probes (each
-    clamped to the part spec), so no op can measure above 100% of
-    roofline from a single probe's bad day in either direction (round
-    2's lone jnp.roll probe under-read by ~35% and put WTA at an
-    impossible 115%; a later pallas-copy probe noise-read 1300 GB/s).
-
-    Probes (all 64 MB working sets — the regime the suite's volumes live
-    in; see benchmarks/vpu_probe.py for the size sweep):
-      * XLA roll-copy: a genuine full-array permutation per iteration;
-      * Pallas streaming copy: block-in, block-out, nothing else.
-    Returns (max_gbps, {probe: gbps}).
-    """
-    import jax
-    import jax.numpy as jnp
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    chain_k = max(chain_k, 32)             # ~6 ms of marginal signal
-    n = 16 * 1024 * 1024                   # 64 MB of f32
-    x = jax.device_put(np.arange(n, dtype=np.float32).reshape(4096, 4096))
-    gbytes = 2 * n * 4 / 1e9
-    probes = {}
-
-    def roll_body(carry):
-        return jnp.roll(carry, 1, axis=0) + jnp.float32(1e-7)
-
-    ms = _marginal_ms(roll_body, x, chain_k, repeats)
-    probes["xla_roll"] = gbytes / (ms / 1e3) if ms > 0 else float("nan")
-
-    if jax.default_backend() != "cpu":
-        def copy_kernel(x_ref, o_ref):
-            o_ref[:] = x_ref[:] + jnp.float32(1e-7)
-
-        @jax.jit
-        def pallas_copy(arr):
-            return pl.pallas_call(
-                copy_kernel,
-                grid=(16,),
-                in_specs=[pl.BlockSpec((256, 4096), lambda i: (i, 0),
-                                       memory_space=pltpu.VMEM)],
-                out_specs=pl.BlockSpec((256, 4096), lambda i: (i, 0),
-                                       memory_space=pltpu.VMEM),
-                out_shape=jax.ShapeDtypeStruct((4096, 4096), jnp.float32),
-            )(arr)
-
-        ms = _marginal_ms(pallas_copy, x, chain_k, repeats)
-        probes["pallas_copy"] = (gbytes / (ms / 1e3) if ms > 0
-                                 else float("nan"))
-
-    valid = [min(v, _HBM_SPEC_GBPS) for v in probes.values() if v == v]
-    return (max(valid) if valid else float("nan")), probes
-
-
-# Reducer-class ops read the volume and write ~nothing; pure-read streams
-# run measurably faster than read+write copies (benchmarks/vpu_probe.py:
-# ~720 GB/s read vs ~690 copy at 64 MB, wider at 256 MB), so their
-# roofline is the READ bandwidth — scoring them against the copy bound
-# put argmin at an impossible 110-116% in rounds 1-2.
-_READ_DOMINATED = {
-    "wta_450x375_d128",
-    "argmin_baseline_450x375_d128",
-    "dynprog_450x375_d128",
-    "refine_median_subpixel_teddy_d128",
-}
-
-
-def measure_read_bandwidth(chain_k=8, repeats=5) -> float:
-    """Achievable pure-read GB/s: a fused multiply-reduce over a 256 MB
-    constant rider (scalar carry keeps the loop un-hoistable; the large
-    array keeps the marginal signal above relay jitter)."""
+def measure_copy_bandwidth(repeats=20):
+    """Achieved bytes/s of a large elementwise copy (1 GiB in, 1 GiB out):
+    what a memory-bound op on this card can reach, beside the published
+    peak."""
     import jax
     import jax.numpy as jnp
 
-    n = 64 * 1024 * 1024                   # 256 MB of f32
-    big = jax.device_put(np.arange(n, dtype=np.float32).reshape(-1, 4096))
+    from stereomatch_tpu.utils import benchmarking
 
-    def body(carry):
-        s, arr = carry
-        return (jnp.sum(arr * (jnp.float32(1.0) + s * jnp.float32(1e-12))),
-                arr)
-
-    ms = _marginal_ms(body, (jnp.float32(0.0), big), chain_k, repeats)
-    return n * 4 / 1e9 / (ms / 1e3) if ms > 0 else float("nan")
-
-
-def _marginal_ms(body_fn, args, chain_k, repeats):
-    from stereomatch_tpu.utils.benchmarking import marginal_ms
-    return marginal_ms(body_fn, args, chain_k=chain_k, repeats=repeats)
+    x = jnp.ones((256 * 1024 * 1024,), jnp.float32)
+    fn = jax.jit(lambda a: a + jnp.float32(1))
+    ms = benchmarking.summarize_ms(benchmarking.time_calls(
+        fn, x, repeats=repeats))["median_ms"]
+    return 2 * x.nbytes / (ms / 1e3)
 
 
 def build_benchmarks():
     import jax
     import jax.numpy as jnp
 
-    from stereomatch_tpu.ops.aggregation import semiglobal_aggregate
     from stereomatch_tpu.ops.cost import (birchfield_cost_volume,
                                           census_hamming_cost_volume,
                                           sad_cost_volume, ssd_cost_volume,
@@ -252,12 +164,10 @@ def build_benchmarks():
     from stereomatch_tpu.ops.cvf import guided_filter_aggregate
     from stereomatch_tpu.ops.disparity import (dynamic_programming,
                                                winner_takes_all)
-    from stereomatch_tpu.ops.dp_pallas import dynamic_programming_pallas
-    from stereomatch_tpu.ops.sgm_pallas import semiglobal_aggregate_pallas
     from stereomatch_tpu.texture import TextureImage
+    from stereomatch_tpu.utils.backend import resolve_backend, semiglobal_fn
 
-    on_cpu = jax.default_backend() == "cpu"
-    aggregate = semiglobal_aggregate if on_cpu else semiglobal_aggregate_pallas
+    aggregate = semiglobal_fn(resolve_backend("auto"))
 
     rng = np.random.default_rng(0)
 
@@ -300,16 +210,6 @@ def build_benchmarks():
         lambda l, r: census_hamming_cost_volume(l, r, max_disparity=d1))
     benches["sad_cost_512x256_d32"] = cost_bench(
         lambda l, r: sad_cost_volume(l, r, max_disparity=d1, kernel_size=7))
-    # Streaming-Pallas variants (one HBM pass; interpret mode on CPU —
-    # semantics only there, the ms is meaningful on the chip).
-    from stereomatch_tpu.ops.ssd_pallas import (sad_cost_volume_pallas,
-                                                ssd_cost_volume_pallas)
-    benches["ssd_cost_pallas_512x256_d32"] = cost_bench(
-        lambda l, r: ssd_cost_volume_pallas(l, r, max_disparity=d1,
-                                            kernel_size=7, interpret=on_cpu))
-    benches["sad_cost_pallas_512x256_d32"] = cost_bench(
-        lambda l, r: sad_cost_volume_pallas(l, r, max_disparity=d1,
-                                            kernel_size=7, interpret=on_cpu))
     benches["zncc_cost_512x256_d32"] = cost_bench(
         lambda l, r: zncc_cost_volume(l, r, max_disparity=d1, kernel_size=7))
 
@@ -353,11 +253,8 @@ def build_benchmarks():
         lambda v, img: winner_takes_all(v))
     benches["argmin_baseline_450x375_d128"] = vol_bench(
         lambda v, img: jnp.argmin(v, axis=2).astype(jnp.int32))
-    # On CPU this times the XLA scan formulation (the Pallas kernel is
-    # TPU-only); the reference_ms comparison is only meaningful on TPU.
     benches["dynprog_450x375_d128"] = vol_bench(
-        lambda v, img: (dynamic_programming(v) if on_cpu
-                        else dynamic_programming_pallas(v)))
+        lambda v, img: dynamic_programming(v))
 
     def pipe_body(carry):
         l, r = carry
@@ -518,9 +415,8 @@ def build_benchmarks():
     benches["fgs_teddy_450x375"] = (fgs_body, (disp0, guide0))
 
     # Batched video steady state: 4 frames per step, sequentially mapped
-    # inside one jit (stream.StreamingEstimator's compute path; lax.map
-    # beats vmap for the Pallas stages).  Reported per BATCH — divide by
-    # 4 for per-frame.
+    # inside one jit (stream.StreamingEstimator's compute path).  Reported
+    # per BATCH — divide by 4 for per-frame.
     lb = jax.device_put(rng.random((4, h2, w2), np.float32))
     rb = jax.device_put(rng.random((4, h2, w2), np.float32))
 
@@ -537,139 +433,130 @@ def build_benchmarks():
 
     # Production-scale geometry: HD-class pair, D=256 (1.3 GB f32 volume).
     # No reference comparison — the CUDA benchmarks stop at teddy size.
-    if not on_cpu:
-        h3, w3, d3 = 1024, 1280, 256
-        l3 = jax.device_put(rng.random((h3, w3), np.float32))
-        r3 = jax.device_put(rng.random((h3, w3), np.float32))
+    h3, w3, d3 = 1024, 1280, 256
+    l3 = jax.device_put(rng.random((h3, w3), np.float32))
+    r3 = jax.device_put(rng.random((h3, w3), np.float32))
 
-        def hd_body(carry):
-            l, r = carry
-            vol = ssd_cost_volume(l, r, max_disparity=d3, kernel_size=7)
-            disp = winner_takes_all(aggregate(vol, l))
-            return feedback(l, disp), r
+    def hd_body(carry):
+        l, r = carry
+        vol = ssd_cost_volume(l, r, max_disparity=d3, kernel_size=7)
+        disp = winner_takes_all(aggregate(vol, l))
+        return feedback(l, disp), r
 
-        benches["pipeline_hd_1024x1280_d256"] = (hd_body, (l3, r3))
+    benches["pipeline_hd_1024x1280_d256"] = (hd_body, (l3, r3))
 
-        def hd_bf16_body(carry):
-            l, r = carry
-            vol = ssd_cost_volume(l, r, max_disparity=d3, kernel_size=7,
-                                  cost_dtype=jnp.bfloat16)
-            disp = winner_takes_all(aggregate(vol, l))
-            return feedback(l, disp), r
+    def hd_bf16_body(carry):
+        l, r = carry
+        vol = ssd_cost_volume(l, r, max_disparity=d3, kernel_size=7,
+                              cost_dtype=jnp.bfloat16)
+        disp = winner_takes_all(aggregate(vol, l))
+        return feedback(l, disp), r
 
-        benches["pipeline_hd_bf16_1024x1280_d256"] = (hd_bf16_body, (l3, r3))
+    benches["pipeline_hd_bf16_1024x1280_d256"] = (hd_bf16_body, (l3, r3))
 
-        def hd_census_bf16_body(carry):
+    def hd_census_bf16_body(carry):
+        l, r = carry
+        vol = census_hamming_cost_volume(l, r, max_disparity=d3,
+                                         cost_dtype=jnp.bfloat16)
+        disp = winner_takes_all(aggregate(vol, l))
+        return feedback(l, disp), r
+
+    benches["pipeline_hd_census_bf16_d256"] = (hd_census_bf16_body,
+                                               (l3, r3))
+
+    # HD CVF rows: the production geometry of the CVF configs.  The
+    # stage row holds a wedge HD volume as carry; the pipeline rows
+    # run census + CVF + WTA like the teddy flagship.
+    wedge_hd = np.asarray(
+        rng.random((h3, w3, d3), np.float32), np.float32)
+    xw3, dw3 = np.meshgrid(np.arange(w3), np.arange(d3),
+                           indexing="ij")
+    wedge_hd[:, xw3 < dw3] = np.inf
+    for dt, nm in ((jnp.float32, ""), (jnp.bfloat16, "_bf16")):
+        vol3 = jax.device_put(jnp.asarray(wedge_hd, dt))
+
+        def cvf_hd_body(carry, dt=dt):
+            v, img = carry
+            out = guided_filter_aggregate(v, img, wedge_offset=0)
+            probe = jnp.where(jnp.isfinite(out[:, :, 0]),
+                              out[:, :, 0].astype(jnp.float32), 0.0)
+            return v + jnp.asarray(1e-12, dt) * probe[:, :, None].astype(
+                dt), img
+
+        benches[f"cvf_hd{nm}_1024x1280_d256"] = (cvf_hd_body,
+                                                 (vol3, l3))
+
+        def hd_census_cvf_body(carry, dt=dt):
             l, r = carry
             vol = census_hamming_cost_volume(l, r, max_disparity=d3,
-                                             cost_dtype=jnp.bfloat16)
-            disp = winner_takes_all(aggregate(vol, l))
+                                             cost_dtype=dt)
+            agg = guided_filter_aggregate(vol, l, wedge_offset=0)
+            disp = winner_takes_all(agg)
             return feedback(l, disp), r
 
-        benches["pipeline_hd_census_bf16_d256"] = (hd_census_bf16_body,
-                                                   (l3, r3))
-
-        # HD CVF rows (round 5, VERDICT r4 weak #4): the production
-        # geometry for the "fastest full-quality config" claim.  The
-        # stage row holds a wedge HD volume as carry; the pipeline rows
-        # run census + CVF + WTA like the teddy flagship.
-        wedge_hd = np.asarray(
-            rng.random((h3, w3, d3), np.float32), np.float32)
-        xw3, dw3 = np.meshgrid(np.arange(w3), np.arange(d3),
-                               indexing="ij")
-        wedge_hd[:, xw3 < dw3] = np.inf
-        for dt, nm in ((jnp.float32, ""), (jnp.bfloat16, "_bf16")):
-            vol3 = jax.device_put(jnp.asarray(wedge_hd, dt))
-
-            def cvf_hd_body(carry, dt=dt):
-                v, img = carry
-                out = guided_filter_aggregate(v, img, wedge_offset=0)
-                probe = jnp.where(jnp.isfinite(out[:, :, 0]),
-                                  out[:, :, 0].astype(jnp.float32), 0.0)
-                return v + jnp.asarray(1e-12, dt) * probe[:, :, None].astype(
-                    dt), img
-
-            benches[f"cvf_hd{nm}_1024x1280_d256"] = (cvf_hd_body,
-                                                     (vol3, l3))
-
-            def hd_census_cvf_body(carry, dt=dt):
-                l, r = carry
-                vol = census_hamming_cost_volume(l, r, max_disparity=d3,
-                                                 cost_dtype=dt)
-                agg = guided_filter_aggregate(vol, l, wedge_offset=0)
-                disp = winner_takes_all(agg)
-                return feedback(l, disp), r
-
-            benches[f"pipeline_hd_census_cvf{nm}_d256"] = (
-                hd_census_cvf_body, (l3, r3))
-        del wedge_hd
-        benches["pipeline_pyramid2_hd_d256"] = pyramid_bench(2, d3, (l3, r3))
-        benches["temporal_track_hd_d256"] = temporal_bench(d3, (l3, r3))
+        benches[f"pipeline_hd_census_cvf{nm}_d256"] = (
+            hd_census_cvf_body, (l3, r3))
+    del wedge_hd
+    benches["pipeline_pyramid2_hd_d256"] = pyramid_bench(2, d3, (l3, r3))
+    benches["temporal_track_hd_d256"] = temporal_bench(d3, (l3, r3))
     return benches
 
 
 def main():
     parser = argparse.ArgumentParser()
     parser.add_argument("--json", default=None)
-    parser.add_argument("--chain", type=int, default=16)
-    parser.add_argument("--repeats", type=int, default=5)
+    parser.add_argument("--repeats", type=int, default=10)
     parser.add_argument("--only", default=None,
                         help="substring filter on benchmark names")
     args = parser.parse_args()
 
     import jax
-    device = jax.devices()[0].device_kind
 
-    results = {}
-    print(f"# device: {device}", file=sys.stderr)
-    hbm_gbps, bw_probes = measure_hbm_bandwidth(args.chain, args.repeats)
-    read_gbps = measure_read_bandwidth(args.chain, args.repeats)
-    # A read probe cannot undercut the copy bound it strictly dominates;
-    # clamp against a noisy-day reading.
-    read_gbps = max(read_gbps, hbm_gbps)
-    print(f"# calibrated copy bandwidth: {hbm_gbps:.0f} GB/s "
-          f"(max over {bw_probes}); read {read_gbps:.0f} GB/s",
-          file=sys.stderr)
+    from stereomatch_tpu.utils import benchmarking
+    from stereomatch_tpu.utils.compile_cache import enable_compile_cache
+    from stereomatch_tpu.utils.devices import device_spec
+
+    enable_compile_cache()
+    benchmarking.require_accelerator()
+    device = benchmarking.device_record()
+    card = benchmarking.card()
+    peak = device_spec(device["kind"]).hbm_bytes_per_s
+    copy_bps = measure_copy_bandwidth()
+    print(f"# device: {device}; card: {card}", file=sys.stderr)
+    print(f"# published memory bandwidth {peak / 1e9:.0f} GB/s; a 1 GiB "
+          f"copy reached {copy_bps / 1e9:.0f} GB/s", file=sys.stderr)
     traffic = _traffic_models()
     header = (f"{'benchmark':36s} {'ms':>9s} {'ref ms':>8s} {'speedup':>8s}"
-              f" {'GB':>7s} {'%SoL':>6s}")
+              f" {'GB':>7s} {'%peak':>6s}")
     print(header, file=sys.stderr)
+    results = {}
     for name, (body, init) in build_benchmarks().items():
         if args.only and args.only not in name:
             continue
-        ms = _marginal_ms(body, init, args.chain, args.repeats)
-        if 0 < ms < 0.7 and args.chain < 64:
-            # Sub-ms ops: the chain-K diff signal (2K * ms) is otherwise
-            # at the relay's jitter scale — round 2 recorded a 2.3x
-            # spread between WTA and the IDENTICAL argmin body.  Longer
-            # chains buy the signal back.
-            ms = _marginal_ms(body, init, 64, args.repeats)
+        step = benchmarking.summarize_ms(benchmarking.time_calls(
+            jax.jit(body), init, repeats=args.repeats))
+        ms = step["median_ms"]
         ref = REFERENCE_MS.get(name)
-        speed = f"{ref / ms:8.2f}" if ref and ms > 0 else "       -"
+        speed = f"{ref / ms:8.2f}" if ref else "       -"
         min_bytes = traffic.get(name)
-        sol_ms = pct = None
-        gbps = read_gbps if name in _READ_DOMINATED else hbm_gbps
-        if min_bytes and ms > 0 and gbps == gbps:
-            sol_ms = min_bytes / 1e9 / gbps * 1e3
-            pct = 100.0 * sol_ms / ms
+        sol_ms = min_bytes / peak * 1e3 if min_bytes else None
+        pct = 100.0 * sol_ms / ms if sol_ms else None
         print(f"{name:36s} {ms:9.3f} {ref if ref else float('nan'):8.3f}"
               f" {speed} {min_bytes / 1e9 if min_bytes else 0:7.3f}"
               f" {pct if pct else float('nan'):6.1f}", file=sys.stderr)
         results[name] = {
-            "ms": round(ms, 4), "reference_ms": ref,
-            "speedup_vs_reference": (round(ref / ms, 3)
-                                     if ref and ms > 0 else None),
+            "ms": round(ms, 4), "q1_ms": round(step["q1_ms"], 4),
+            "q3_ms": round(step["q3_ms"], 4), "reference_ms": ref,
+            "speedup_vs_reference": round(ref / ms, 3) if ref else None,
             "min_bytes_moved": min_bytes,
-            "sol_ms_at_measured_bw": (round(sol_ms, 4)
-                                      if sol_ms is not None else None),
+            "sol_ms_at_published_bw": (round(sol_ms, 4)
+                                       if sol_ms is not None else None),
             "pct_of_roofline": round(pct, 1) if pct is not None else None,
         }
 
-    payload = {"device": device,
-               "measured_hbm_gbps": round(hbm_gbps, 1),
-               "measured_read_gbps": round(read_gbps, 1),
-               "bw_probes_gbps": {k: round(v, 1)
-                                  for k, v in bw_probes.items()},
+    payload = {"device": device, "card": card,
+               "published_hbm_gbps": round(peak / 1e9, 1),
+               "measured_copy_gbps": round(copy_bps / 1e9, 1),
                "results": results}
     if args.json:
         with open(args.json, "w") as f:

@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Zero-network quickstart: synthetic scene -> disparity -> depth -> PLY.
 
-Runs everywhere (CPU or TPU) with nothing to download: generates an
+Runs everywhere (CPU or GPU) with nothing to download: generates an
 occlusion-aware synthetic stereo pair with exact ground truth, runs the
 census + 8-path SGM + WTA pipeline with post-processing, scores it
 against the ground truth, and reprojects the result to a colored 3-D

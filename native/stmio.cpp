@@ -1,6 +1,6 @@
 // libstmio — native I/O runtime for stereomatch_tpu.
 //
-// TPU-native counterpart of the reference's native layer for data movement:
+// Counterpart of the reference's native layer for data movement:
 // where the reference links OpenCV for image/video decode (stereomatch/
 // data.py, capture.py) and hand-rolls CUDA staging (cuda_texture.cpp:88-100),
 // this library owns the host-side data path: Netpbm/PFM codecs for

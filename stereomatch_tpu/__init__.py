@@ -1,10 +1,11 @@
-"""stereomatch_tpu — a TPU-native classic stereo-matching engine.
+"""stereomatch_tpu — a classic stereo-matching engine on JAX.
 
-A from-scratch JAX/XLA/Pallas re-design with the capabilities of the
-reference CUDA library (otaviog/stereo-matching): SSD and Birchfield-Tomasi
-cost volumes, 8-path semiglobal aggregation, winner-takes-all and
+A from-scratch JAX/XLA re-design with the capabilities of the reference
+CUDA library (otaviog/stereo-matching): SSD and Birchfield-Tomasi cost
+volumes, 8-path semiglobal aggregation (with a hand-written CUDA kernel
+for NVIDIA Hopper GPUs, ops/sgm_cuda.cu), winner-takes-all and
 dynamic-programming disparity reduction, composed into jit-compiled
-pipelines that shard across TPU meshes.
+pipelines that shard across device meshes.
 
 Public surface mirrors the reference package layout
 (stereomatch/__init__.py:1-4): cost / aggregation / disparity_reduce plus

@@ -7,11 +7,9 @@ from typing import Optional
 
 import jax.numpy as jnp
 
-from .ops.aggregation import semiglobal_aggregate
 from .ops.cvf import guided_filter_aggregate
-from .ops.sgm_pallas import semiglobal_aggregate_pallas
 from .utils import validation
-from .utils.backend import resolve_backend
+from .utils.backend import resolve_backend, semiglobal_fn
 
 
 class Semiglobal:
@@ -34,11 +32,10 @@ class Semiglobal:
             penalty1: cost penalty for changing disparity by one level.
             penalty2: base penalty for larger disparity jumps, scaled by the
               inverse image gradient (P2_adj = max(P1, P2 / |dI|)).
-            backend: "pallas" (streaming TPU kernels, ops/sgm_pallas.py),
-              "xla" (lax.scan formulation), or "auto" — pallas on TPU,
-              xla everywhere else.  Both compute the same
-              8-traversal aggregation; results differ only in float
-              summation order (last-ulp).
+            backend: "cuda" (the Hopper kernel, ops/sgm_cuda.cu), "xla"
+              (lax.scan formulation), or "auto" — cuda on a Hopper GPU,
+              xla everywhere else.  Both compute the same 8-traversal
+              aggregation in the same order (see utils/backend.py).
         """
         self.penalty1 = penalty1
         self.penalty2 = penalty2
@@ -54,13 +51,10 @@ class Semiglobal:
             raise validation.ShapeError(
                 f"cost_volume spatial dims {cost_volume.shape[:2]} do not "
                 f"match left_image {left_image.shape}")
-        if resolve_backend(self.backend) == "pallas":
-            return semiglobal_aggregate_pallas(cost_volume, left_image,
-                                               penalty1=float(self.penalty1),
-                                               penalty2=float(self.penalty2))
-        return semiglobal_aggregate(cost_volume, left_image,
-                                    penalty1=float(self.penalty1),
-                                    penalty2=float(self.penalty2))
+        aggregate = semiglobal_fn(resolve_backend(self.backend))
+        return aggregate(cost_volume, left_image,
+                         penalty1=float(self.penalty1),
+                         penalty2=float(self.penalty2))
 
 
 class CostFilter:
@@ -78,8 +72,7 @@ class CostFilter:
     ``penalty1``/``penalty2``/``backend`` are accepted so the class is
     registry-compatible with :class:`Semiglobal` (cli_common.py factory)
     but do not apply: the method has no disparity-jump penalties, and
-    its box filters are a single XLA formulation (already at the memory
-    floor — no Pallas variant exists to select).
+    its box filters are a single XLA formulation.
     """
 
     def __init__(self, radius: int = 8, eps: float = 1e-4,

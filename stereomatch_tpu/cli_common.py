@@ -41,6 +41,17 @@ STREAM_REDUCERS = {
 VOLUME_DTYPES = ("float32", "bfloat16", "int32")
 
 
+def setup_runtime(device=None) -> None:
+    """CLI start-up: select the JAX platform (``--device``) and place the
+    persistent compilation cache (utils/compile_cache.py)."""
+    import jax
+
+    from .utils.compile_cache import enable_compile_cache
+    if device:
+        jax.config.update("jax_platforms", device)
+    enable_compile_cache()
+
+
 def create_pipeline(cost_method: str, disp_method: str,
                     aggr_method: str = None,
                     max_disparity: int = 32,
@@ -59,10 +70,10 @@ def create_pipeline(cost_method: str, disp_method: str,
     ``penalty1``/``penalty2`` configure SGM, ``cvf_radius``/``cvf_eps``
     configure cvf, and ``census_window`` the census code window (each
     ignored by the other methods);
-    ``backend`` selects pallas/xla kernels for the stages that have both
-    (see utils.backend.resolve_backend); ``volume_dtype`` is the cost
-    volume's storage dtype — "bfloat16" halves the HBM traffic of every
-    volume pass (the recurrences still run float32 in VMEM; accuracy
+    ``backend`` selects the SGM implementation — the Hopper kernel or the
+    XLA scans (see utils.backend.resolve_backend); ``volume_dtype`` is the
+    cost volume's storage dtype — "bfloat16" halves the memory traffic of
+    every volume pass (the recurrences still compute float32; accuracy
     bound in tests/test_bf16.py), "int32" is the reference's integer cost
     path (SSD only, no SGM).
     """
@@ -101,9 +112,7 @@ def create_pipeline(cost_method: str, disp_method: str,
                 kwargs.update(wedge_offset=0)
         aggregation = aggregation_cls(**kwargs)
 
-    disparity_cls = DISPARITY_METHODS[disp_method]
-    disparity = (disparity_cls(backend=backend)
-                 if disparity_cls is DynamicProgramming else disparity_cls())
+    disparity = DISPARITY_METHODS[disp_method]()
 
     cost_cls = COST_METHODS[cost_method]
     if cost_cls is NCC and volume_dtype == "int32":
@@ -114,8 +123,7 @@ def create_pipeline(cost_method: str, disp_method: str,
                       cost_volume_dtype=jnp.dtype(volume_dtype))
     elif cost_cls in (SSD, SAD):
         cost = cost_cls(max_disparity,
-                        cost_volume_dtype=jnp.dtype(volume_dtype),
-                        backend=backend)
+                        cost_volume_dtype=jnp.dtype(volume_dtype))
     elif cost_cls is NCC:
         cost = NCC(max_disparity, cost_volume_dtype=jnp.dtype(volume_dtype))
     else:
@@ -126,24 +134,19 @@ def create_pipeline(cost_method: str, disp_method: str,
 
 def recommended_dtype(height: int, width: int,
                       aggregation: str = "sgm") -> str:
-    """Geometry-aware volume-dtype recommendation (round 5).
+    """Geometry-aware volume-dtype recommendation.
 
-    Measured on the v5e chip (benchmarks/results_v5e_r04.json,
-    benchmarks/cvf_ring_probe_r5_out.json):
+    Measured end to end through ``Pipeline.compiled()`` on one NVIDIA H100
+    80GB HBM3 at a 400 W power limit (census cost, WTA):
 
-    * SGM pipelines at teddy-class frames run FASTER in float32
-      (census 2.57 vs 2.83 ms) — the bf16 storage saving is smaller
-      than its widen/narrow overhead once the f32 path lost its
-      transposes in round 4;
-    * at HD-class frames the volume dominates HBM traffic and bf16
-      wins decisively (census+SGM 40.3 vs 54.5 ms);
-    * CVF aggregation is HBM-bound at every size — bf16 wins even at
-      teddy (fused kernel 1.83 vs 2.30 ms same-process), and census
-      costs are small integers that bf16 represents exactly.
+    * teddy, 375x450 D=128 (0.17 MP): SGM 2.36 ms f32 vs 2.65 ms bf16,
+      CVF 2.53 vs 2.71 — float32 is faster: the volume is small enough
+      that bf16's widen/narrow work outweighs its saved bytes;
+    * HD, 1024x1280 D=256 (1.3 MP): SGM 16.68 vs 15.79 ms, CVF 22.95 vs
+      21.00 — bfloat16 is faster.
 
-    The threshold between the classes is half a megapixel (teddy is
-    0.17 MP, HD-class 1.3 MP).
+    The threshold between the classes is half a megapixel, for both
+    aggregations (``aggregation`` is accepted for the callers' sake).
     """
-    if aggregation == "cvf":
-        return "bfloat16"
+    del aggregation
     return "bfloat16" if height * width >= 512 * 1024 else "float32"

@@ -1,5 +1,5 @@
 """Cost-function API — class surface mirroring the reference
-(stereomatch/cost.py:13-101), backed by the jitted TPU kernels in
+(stereomatch/cost.py:13-101), backed by the jitted kernels in
 ``stereomatch_tpu.ops.cost``.
 
 API notes vs. the reference:
@@ -24,47 +24,8 @@ import jax.numpy as jnp
 from .ops.cost import (birchfield_cost_volume, census_hamming_cost_volume,
                        sad_cost_volume, ssd_cost_volume,
                        ssd_texture_cost_volume, zncc_cost_volume)
-from .ops.ssd_pallas import (diff_cost_volume_pallas, ssd_pallas_preferred,
-                             ssd_pallas_supported)
 from .texture import TextureImage
 from .utils import validation
-from .utils.backend import resolve_backend
-
-
-def _diff_cost_dispatch(left, right, *, max_disparity, kernel_size,
-                        cost_dtype, absolute, backend):
-    """SSD/SAD backend dispatch.
-
-    ``backend="auto"`` takes the streaming Pallas kernel only where it
-    *measures faster* than the XLA separable-box formulation (D <= 64,
-    W % 128 == 0, fits VMEM — ops.ssd_pallas.ssd_pallas_preferred);
-    explicit ``"pallas"`` forces the kernel whenever the geometry merely
-    *fits VMEM* (ssd_pallas_supported), in interpret mode off-TPU so the
-    routing works on any backend.  Unsupported geometries fall back to the
-    XLA formulation (the semantic oracle) in every mode.
-    """
-    import jax
-
-    height, width = left.shape
-    if backend == "auto":
-        use_pallas = (resolve_backend(backend) == "pallas"
-                      and ssd_pallas_preferred(height, width, max_disparity,
-                                               kernel_size))
-    else:
-        use_pallas = (resolve_backend(backend) == "pallas"
-                      and ssd_pallas_supported(height, width, max_disparity,
-                                               kernel_size))
-    if use_pallas:
-        return diff_cost_volume_pallas(left, right,
-                                       max_disparity=max_disparity,
-                                       kernel_size=kernel_size,
-                                       cost_dtype=cost_dtype,
-                                       absolute=absolute,
-                                       interpret=(jax.default_backend()
-                                                  != "tpu"))
-    fn = sad_cost_volume if absolute else ssd_cost_volume
-    return fn(left, right, max_disparity=max_disparity,
-              kernel_size=kernel_size, cost_dtype=cost_dtype)
 
 
 class SSD:
@@ -74,33 +35,25 @@ class SSD:
         max_disparity: number of disparity hypotheses (the D axis).
         kernel_size: SSD window half-extent k; the window is [i-k, i+k).
         cost_volume_dtype: output dtype (float32 or int32).
-        backend: "auto" | "pallas" | "xla".  "auto" streams image rows
-            through the single-HBM-pass kernel (ops/ssd_pallas.py) only
-            on TPU at geometries where it measured faster (D <= 64,
-            W a multiple of 128, fits VMEM); explicit "pallas" forces the
-            kernel whenever the geometry fits VMEM; "xla" always uses the
-            separable-box formulation (the semantic oracle).
     """
 
     def __init__(self, max_disparity: int, kernel_size: int = 7,
-                 cost_volume_dtype=jnp.float32, backend: str = "auto"):
+                 cost_volume_dtype=jnp.float32):
         validation.check_positive("max_disparity", max_disparity)
         validation.check_positive("kernel_size", kernel_size)
         self.max_disparity = max_disparity
         self.kernel_size = kernel_size
         self.cost_volume_dtype = cost_volume_dtype
-        self.backend = backend
 
     def __call__(self, left_image, right_image,
                  cost_volume: Optional[jnp.ndarray] = None) -> jnp.ndarray:
         left_image = jnp.asarray(left_image)
         right_image = jnp.asarray(right_image)
         validation.check_stereo_pair(left_image, right_image)
-        return _diff_cost_dispatch(left_image, right_image,
-                                   max_disparity=self.max_disparity,
-                                   kernel_size=self.kernel_size,
-                                   cost_dtype=self.cost_volume_dtype,
-                                   absolute=False, backend=self.backend)
+        return ssd_cost_volume(left_image, right_image,
+                               max_disparity=self.max_disparity,
+                               kernel_size=self.kernel_size,
+                               cost_dtype=self.cost_volume_dtype)
 
 
 class SSDTexture:
@@ -133,29 +86,25 @@ class SAD:
         max_disparity: number of disparity hypotheses (the D axis).
         kernel_size: window half-extent k; the window is [i-k, i+k).
         cost_volume_dtype: output dtype (float32 / bfloat16 / int32).
-        backend: "auto" | "pallas" | "xla" — same dispatch semantics as
-            :class:`SSD` (the streaming kernel shares its window code).
     """
 
     def __init__(self, max_disparity: int, kernel_size: int = 7,
-                 cost_volume_dtype=jnp.float32, backend: str = "auto"):
+                 cost_volume_dtype=jnp.float32):
         validation.check_positive("max_disparity", max_disparity)
         validation.check_positive("kernel_size", kernel_size)
         self.max_disparity = max_disparity
         self.kernel_size = kernel_size
         self.cost_volume_dtype = cost_volume_dtype
-        self.backend = backend
 
     def __call__(self, left_image, right_image,
                  cost_volume: Optional[jnp.ndarray] = None) -> jnp.ndarray:
         left_image = jnp.asarray(left_image)
         right_image = jnp.asarray(right_image)
         validation.check_stereo_pair(left_image, right_image)
-        return _diff_cost_dispatch(left_image, right_image,
-                                   max_disparity=self.max_disparity,
-                                   kernel_size=self.kernel_size,
-                                   cost_dtype=self.cost_volume_dtype,
-                                   absolute=True, backend=self.backend)
+        return sad_cost_volume(left_image, right_image,
+                               max_disparity=self.max_disparity,
+                               kernel_size=self.kernel_size,
+                               cost_dtype=self.cost_volume_dtype)
 
 
 class NCC:

@@ -8,9 +8,7 @@ from typing import Optional
 import jax.numpy as jnp
 
 from .ops.disparity import dynamic_programming, winner_takes_all
-from .ops.dp_pallas import dynamic_programming_pallas
 from .utils import validation
-from .utils.backend import resolve_backend
 
 
 class WinnerTakesAll:
@@ -19,7 +17,7 @@ class WinnerTakesAll:
 
     Ties break toward the lower disparity (the reference CPU semantics,
     winners_take_all.cu:29-37).  The CUDA power-of-two-D restriction
-    (disparity_reduce.py:40-43) does not apply on TPU.
+    (disparity_reduce.py:40-43) does not apply here.
     """
 
     def __call__(self, cost_volume,
@@ -37,19 +35,10 @@ class DynamicProgramming:
     the caller side (disparity_reduce.py:77-84); here those live inside the
     jitted kernel (see ops.disparity.dynamic_programming_with_paths for a
     variant exposing them).
-
-    ``backend``: "pallas" (streaming kernels, ops/dp_pallas.py), "xla"
-    (lax.scan), or "auto" — pallas on TPU, xla elsewhere.  Both produce
-    identical disparities.
     """
-
-    def __init__(self, backend: str = "auto"):
-        self.backend = backend
 
     def __call__(self, cost_volume,
                  disparity_img: Optional[jnp.ndarray] = None) -> jnp.ndarray:
         cost_volume = jnp.asarray(cost_volume)
         validation.check_cost_volume(cost_volume)
-        if resolve_backend(self.backend) == "pallas":
-            return dynamic_programming_pallas(cost_volume)
         return dynamic_programming(cost_volume)

@@ -1,4 +1,4 @@
-"""Stereo rectification via homography pairs — TPU-native.
+"""Stereo rectification via homography pairs, on the device.
 
 The reference's ``StereoRectifier`` (stereomatch/calibration.py:11-72) wraps
 ``cv2.warpPerspective``.  Here the perspective warp itself is a jitted JAX
@@ -41,7 +41,9 @@ def warp_perspective(image: jnp.ndarray, homography: jnp.ndarray,
                           indexing="ij")
     ones = jnp.ones_like(xs)
     dst = jnp.stack([xs, ys, ones], axis=-1).reshape(-1, 3)       # [N, 3]
-    src = dst @ hmat.T
+    # HIGHEST: a TF32 product (the H100's default for f32 matmuls) keeps
+    # ~10 mantissa bits, ~1 px of error at 1e3-pixel coordinates.
+    src = jnp.matmul(dst, hmat.T, precision=jax.lax.Precision.HIGHEST)
     sx = src[:, 0] / src[:, 2]
     sy = src[:, 1] / src[:, 2]
 

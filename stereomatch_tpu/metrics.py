@@ -1,6 +1,6 @@
 """Disparity quality metrics.
 
-TPU-native replacement for the reference's dependency on
+Replacement for the reference's dependency on
 ``stereomideval.eval.Metric`` in its Flyte workflow
 (workflows/evaluation/workflow.py:96-98): RMSE, average absolute error and
 bad-pixel percentage, each masked to valid ground-truth pixels.

@@ -1,6 +1,6 @@
-"""Functional, jittable TPU kernels (the compute path).
+"""Functional, jittable kernels (the compute path).
 
-These are the TPU-native equivalents of the reference's native kernel layer
+These are the equivalents of the reference's native kernel layer
 (src/*.cu, src/semiglobal.cpp); the class-based API in the package root wraps
 them with the reference's Python surface.
 """
@@ -11,13 +11,11 @@ from .cost import (birchfield_cost_volume, census_hamming_cost_volume,
                    ssd_texture_cost_volume)
 from .disparity import (dynamic_programming, dynamic_programming_with_paths,
                         winner_takes_all)
-from .dp_pallas import dynamic_programming_pallas
 from .refine import (confidence_pkrn, fgs_smooth, fill_inconsistent,
                      left_right_consistency, median_filter_3x3,
                      right_disparity, right_disparity_from_volume,
                      right_volume_from_left, subpixel_refine,
                      weighted_median_filter)
-from .sgm_pallas import semiglobal_aggregate_pallas
 
 __all__ = [
     "birchfield_cost_volume",
@@ -25,7 +23,6 @@ __all__ = [
     "census_transform",
     "confidence_pkrn",
     "dynamic_programming",
-    "dynamic_programming_pallas",
     "dynamic_programming_with_paths",
     "fgs_smooth",
     "fill_inconsistent",
@@ -35,7 +32,6 @@ __all__ = [
     "right_disparity_from_volume",
     "right_volume_from_left",
     "semiglobal_aggregate",
-    "semiglobal_aggregate_pallas",
     "ssd_cost_volume",
     "ssd_texture_cost_volume",
     "subpixel_refine",

@@ -1,6 +1,6 @@
 """Semiglobal-matching cost aggregation (functional, jittable).
 
-TPU-native re-design of the reference SGM kernels
+Array-level re-design of the reference SGM kernels
 (``src/semiglobal.cpp:93-197`` CPU, ``src/semiglobal_gpu.cu:23-142`` GPU).
 
 The reference enumerates explicit pixel paths — ``height`` horizontal +
@@ -12,15 +12,18 @@ min-reduction per step (semiglobal_gpu.cu:43-105).
 
 Here every family becomes ONE ``lax.scan`` whose carry holds the running
 path costs of *all* paths of that family at once, vectorized over
-(orthogonal-axis, disparity) — disparity rides the TPU lane axis, the
-orthogonal image axis rides sublanes, and the per-step band-min recurrence
-is pure VPU work:
+(orthogonal-axis, disparity), and the per-step band-min recurrence is pure
+elementwise work:
 
   family          scan axis   carry [N, D]      predecessor offset in carry
   horizontal      W           N = H             0
   vertical        H           N = W             0
   diagonal (1,1)  H           N = W             +1   (came from column x-1)
   diagonal (-1,1) H           N = W             -1   (came from column x+1)
+
+This formulation is the semantic oracle and runs on any backend; on an
+NVIDIA Hopper GPU the same recurrence runs as a CUDA kernel that walks each
+path with one warp (ops/sgm_cuda.cu), chosen by utils/backend.py.
 
 Diagonal paths need no skewed copies of the volume: shifting the carry by
 one column per row step realises the diagonal predecessor, and path *starts*
@@ -59,14 +62,14 @@ def sgm_scan_with_carry(cost_sv: jnp.ndarray, image_sv: jnp.ndarray,
                         seed_first=True):
     """Run one SGM sweep over scan-major inputs, exposing the carry.
 
-    This is the chunk-level building block for multi-chip SGM: a sweep over
-    a tile of the scan axis starts from ``init_carry`` (handed off from the
-    neighboring tile owner over ICI) and returns its final carry for the next
+    This is the chunk-level building block for multi-device SGM: a sweep
+    over a tile of the scan axis starts from ``init_carry`` (handed off from
+    the neighboring tile owner) and returns its final carry for the next
     tile (see stereomatch_tpu.parallel.sharded).
 
     Args:
       cost_sv: [S, N, D] cost volume, S = scan axis (path direction),
-        N = all parallel paths of the family, D = disparity (lane axis).
+        N = all parallel paths of the family, D = disparity.
       image_sv: [S, N] left-image intensities in the same layout.
       penalty1/penalty2: SGM penalties.
       carry_shift: predecessor offset along N (0 for axis-aligned paths,
@@ -119,8 +122,8 @@ def sgm_scan_with_carry(cost_sv: jnp.ndarray, image_sv: jnp.ndarray,
         # "- prev_min" and turns the P2 term into a bare broadcast of
         # P2_adj (min(prev - m) == 0, so the P2 candidate is P2_adj
         # itself).  Same recurrence as semiglobal.cpp:146-152 with the
-        # subtraction hoisted; the Pallas kernels use the identical
-        # association so both paths round identically.
+        # subtraction hoisted; the CUDA kernel (ops/sgm_cuda.cu) uses the
+        # identical association so both paths round identically.
         prevn = prev - prev_min
         up = jnp.concatenate([jnp.full_like(prevn[:, :1], inf),
                               prevn[:, :-1]], axis=1)               # d-1

@@ -1,11 +1,11 @@
 """Cost-volume construction kernels (functional, jittable).
 
-TPU-native re-design of the reference CUDA cost kernels:
+Array-level re-design of the reference CUDA cost kernels:
 
 * SSD   — reference ``src/ssd.cu:15-81`` recomputes a k^2 window per
   (pixel, disparity): O(H*W*D*k^2) scalar MACs.  Here the squared-difference
   volume ``diff2[h, w, d] = (L[h, w] - R[h, w - d])^2`` is built once as a
-  vectorized [H, W, D] array (disparity on the TPU lane axis) and the window
+  vectorized [H, W, D] array (disparity innermost) and the window
   sum becomes a *separable* box filter — two 1-D ``lax.reduce_window`` passes
   — O(H*W*D*k).  Direct windowed summation keeps float32 exactness (no
   integral-image cancellation).
@@ -62,8 +62,8 @@ def shifted_right_stack(right: jnp.ndarray, max_disparity: int,
                         disparity_offset=0) -> jnp.ndarray:
     """Build S[h, w, d] = right[h, w - (d + offset)] (zero out of range).
 
-    One vectorized gather with a clamped index; the d axis lands on TPU vector
-    lanes.  This is the TPU equivalent of each CUDA thread reading
+    One vectorized gather with a clamped index, d innermost.  This is the
+    array equivalent of each CUDA thread reading
     ``right_image[krow][kcol - disp]`` (ssd.cu:49).  ``disparity_offset``
     (may be traced) selects a block of the disparity axis — the
     disparity-sharded pipeline gives each chip its own block.
@@ -77,75 +77,19 @@ def shifted_right_stack(right: jnp.ndarray, max_disparity: int,
     return jnp.where(valid[None, :, :], gathered, jnp.zeros((), right.dtype))
 
 
-# The leading-axis box pass can run on the MXU as a banded-matrix
-# multiply instead of 2k VPU adds per element.  Measured at teddy
-# (450x375, D=128, k=7): SSD 1.30 -> 1.07 ms with HIGHEST-precision
-# passes (bf16x6, max_rel 4.2e-7 vs reduce_window — inside the 2e-6
-# oracle tolerance; DEFAULT precision truncates to bf16 mantissas,
-# ~1e-3, and is not usable).  The band is materialized dense, so the
-# MXU work grows with n^2: past this height the six f32-exact passes
-# cost more than the VPU adds (HD n=1024: ~4 TFLOP — reduce_window
-# wins there).  benchmarks/ssd_mxu_probe.py holds the measurements.
-_BOX_MXU_MAX_N = 512
-
-
-def mxu_leading_box_ok(n: int, dtype) -> bool:
-    """Whether the leading-axis box sum should ride the MXU (see
-    _BOX_MXU_MAX_N): float data and a short enough axis that six
-    f32-exact passes over the dense band beat 2k VPU adds/element."""
-    return n <= _BOX_MXU_MAX_N and jnp.issubdtype(jnp.dtype(dtype),
-                                                  jnp.floating)
-
-
-def mxu_leading_box(volume: jnp.ndarray, lo: int, hi: int) -> jnp.ndarray:
-    """Leading-axis banded box sum on the MXU:
-    out[o, ...] = sum_{i in [o-lo, o+hi]} volume[i, ...] (clipped).
-
-    HIGHEST-precision passes keep the result inside last-ulp distance of
-    the reduce_window lowering (measured 4.2e-7 max_rel at teddy —
-    benchmarks/ssd_mxu_probe.py; DEFAULT precision truncates to bf16
-    mantissas, ~1e-3, unusable for oracle-pinned math).
-    """
-    n = volume.shape[0]
-    i_idx = lax.broadcasted_iota(jnp.int32, (n, n), 0)
-    o_idx = lax.broadcasted_iota(jnp.int32, (n, n), 1)
-    band = ((i_idx >= o_idx - lo) & (i_idx <= o_idx + hi)
-            ).astype(volume.dtype)
-    return jnp.einsum("ih,i...->h...", band, volume,
-                      precision=lax.Precision.HIGHEST,
-                      preferred_element_type=volume.dtype)
-
-
-def _box_sum(volume: jnp.ndarray, kernel_size: int, axes: tuple,
-             use_mxu: bool = True) -> jnp.ndarray:
+def _box_sum(volume: jnp.ndarray, kernel_size: int,
+             axes: tuple) -> jnp.ndarray:
     """Separable clipped box sum with the reference's half-open window.
 
     The reference window along an axis is [i - k, i + k) — 2k taps
     (ssd.cu:37-42) — realised with asymmetric padding (k, k-1).  Values
     outside the array contribute zero, which matches window *clipping*
     because the summand is non-negative and the pad is additive identity.
-
-    Two lowerings per axis: the leading axis of float volumes rides the
-    MXU as a banded 0/1 matrix contraction when the axis is short enough
-    (see _BOX_MXU_MAX_N); everything else — trailing axes, integer
-    dtypes (bit-exactness), long axes — is one ``reduce_window``
-    (O(k) adds/element, additive-identity padding).
-
-    ``use_mxu=False`` pins reduce_window on every axis: the SSD/SAD
-    chain uses it because the MXU pass, while faster standalone (0.86
-    vs 1.27 ms at teddy D=128), made the full SSD+SGM+WTA PIPELINE
-    slower (3.89 vs 3.30 ms — the dot operand/result materializations
-    collide with SGM's traffic where reduce_window fuses its diff²
-    producer; benchmarks/pipeline_ab_r3_out.json).  ZNCC and CVF keep
-    the MXU pass — their pipelines measured faster with it.
+    One ``reduce_window`` per axis (O(k) adds/element, additive-identity
+    padding; exact for integer dtypes).
     """
     k = kernel_size
     for ax in axes:
-        if (use_mxu and ax == 0 and volume.ndim >= 2
-                and mxu_leading_box_ok(volume.shape[0], volume.dtype)):
-            # Half-open [i-k, i+k) window: lo = k, hi = k - 1.
-            volume = mxu_leading_box(volume, k, k - 1)
-            continue
         window = [1] * volume.ndim
         padding = [(0, 0)] * volume.ndim
         window[ax] = 2 * k
@@ -183,8 +127,7 @@ def _diff_cost_volume(left: jnp.ndarray, right: jnp.ndarray, *,
     valid = (w_idx >= d_idx + disparity_offset)[None, :, :]
     term = jnp.where(valid, term, jnp.zeros((), compute_dtype))
 
-    # use_mxu=False: the MXU pass loses IN-PIPELINE (see _box_sum).
-    cost = _box_sum(term, kernel_size, axes=(0, 1), use_mxu=False)
+    cost = _box_sum(term, kernel_size, axes=(0, 1))
 
     cost = jnp.where(valid, cost.astype(cost_dtype), _inf_value(cost_dtype))
     return cost
@@ -480,7 +423,7 @@ def census_hamming_cost_volume(left: jnp.ndarray, right: jnp.ndarray, *,
     compute_dtype = _compute_dtype(left.dtype, cost_dtype)
     cost = jnp.where(valid, ham, 0).astype(compute_dtype)
     if kernel_size > 1:
-        cost = _box_sum(cost, kernel_size, axes=(0, 1), use_mxu=False)
+        cost = _box_sum(cost, kernel_size, axes=(0, 1))
     return jnp.where(valid, cost.astype(cost_dtype), _inf_value(cost_dtype))
 
 
@@ -577,13 +520,7 @@ def _rowboxed_prefix(img: jnp.ndarray, kernel_size: int) -> jnp.ndarray:
     prefix = jnp.concatenate(
         [jnp.zeros((height, 1), img.dtype), jnp.cumsum(img, axis=1)],
         axis=1)
-    # use_mxu=False is load-bearing for the sharded bit-parity: the
-    # banded-einsum lowering of SMALL 2-D planes is not halo-stable
-    # (the dot's K-blocking phase shifts with the padded height — a
-    # 1.5e-5 drift measured on prefix planes), while reduce_window and
-    # the volume-shaped einsum both are.  The prefix planes are tiny
-    # against the volume, so this costs nothing.
-    return _box_sum(prefix, kernel_size, axes=(0,), use_mxu=False)
+    return _box_sum(prefix, kernel_size, axes=(0,))
 
 
 def _window_ends(plane: jnp.ndarray, kernel_size: int):
@@ -753,8 +690,7 @@ def zncc_cost_from_padded(left_padded: jnp.ndarray,
                           cost_dtype=jnp.float32,
                           eps: float = 1e-6,
                           row_valid=None,
-                          left_mean=None, right_mean=None,
-                          use_mxu=None) -> jnp.ndarray:
+                          left_mean=None, right_mean=None) -> jnp.ndarray:
     """ZNCC band cost with explicit row halos (see ssd_cost_from_padded).
 
     Round 5: this is the single-chip prefix-plane formulation
@@ -780,11 +716,6 @@ def zncc_cost_from_padded(left_padded: jnp.ndarray,
       then hold identical small-integer floats, matching the
       single-chip closed form.  None means all padded rows are real
       data (interior tiles / full halos).
-    * ``use_mxu`` must carry the GLOBAL-geometry lowering decision
-      (``mxu_leading_box_ok(global_H, f32)``), like
-      guided_filter_from_padded — the local padded height can straddle
-      the threshold and the two lowerings differ by ~4e-7.  None
-      decides from the local height (standalone use).
     """
     cost_dtype = jnp.dtype(cost_dtype)
     if not jnp.issubdtype(cost_dtype, jnp.floating):
@@ -825,8 +756,8 @@ def zncc_cost_from_padded(left_padded: jnp.ndarray,
     valid = (w_idx >= d_idx)[None, :, :]
 
     def row_box(x):
-        """[i-k, i+k) row box via reduce_window (halo-stable for 2-D
-        planes where the banded einsum is not — see _rowboxed_prefix)."""
+        """[i-k, i+k) row box via reduce_window (halo-stable: each
+        window sums the same values in the same order on a tile)."""
         window = [1] * x.ndim
         padding = [(0, 0)] * x.ndim
         window[0] = 2 * k
@@ -835,15 +766,6 @@ def zncc_cost_from_padded(left_padded: jnp.ndarray,
                                  window_dimensions=tuple(window),
                                  window_strides=(1,) * x.ndim,
                                  padding=tuple(padding))
-
-    def lead_box(x):
-        """Volume row box with the single-chip lowering choice (the
-        volume-shaped banded einsum measured halo-stable, unlike the
-        2-D plane one)."""
-        if use_mxu is True or (use_mxu is None
-                               and mxu_leading_box_ok(hp, x.dtype)):
-            return mxu_leading_box(x, k, k - 1)
-        return row_box(x)
 
     # Window support count: rows from a box over the validity row
     # vector (identical small integers to the single-chip closed form),
@@ -887,7 +809,7 @@ def zncc_cost_from_padded(left_padded: jnp.ndarray,
     s_rr = right_stat(right_c * right_c)
 
     shifted = shifted_right_stack(right_c, max_disparity)    # [Hp, W, D]
-    s_lr = _box_sum(lead_box(left_c[:, :, None] * shifted), k, axes=(1,))
+    s_lr = _box_sum(row_box(left_c[:, :, None] * shifted), k, axes=(1,))
 
     cost = _zncc_combine((n, s_l, s_ll, s_r, s_rr, s_lr), valid,
                          cost_dtype, eps)
@@ -899,8 +821,8 @@ def ssd_texture_cost_volume(left_texture, right_texture, *,
                             kernel_size: int = 7) -> jnp.ndarray:
     """SSD over sampled textures.
 
-    TPU port of the tex2D-based kernel (src/ssd.cu:83-136).  TPUs have no
-    texture units; the texture abstraction (`stereomatch_tpu.texture`) is a
+    Port of the tex2D-based kernel (src/ssd.cu:83-136) without texture
+    units: the texture abstraction (`stereomatch_tpu.texture`) is a
     gather-based sampler with clamp addressing and nearest filtering, which
     over integer pixel centres returns the underlying image exactly — so the
     cost matches `ssd_cost_volume` bit-for-bit, mirroring the reference where

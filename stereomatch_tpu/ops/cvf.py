@@ -7,10 +7,10 @@ filtering" method of Hosni et al. (PAMI 2013).  This has no analogue in
 the reference (its only aggregation is semiglobal,
 stereomatch/aggregation.py:12-57); it is beyond-parity capability.
 
-Why it earns its place on TPU: the whole method is box filters and
+Why it earns its place: the whole method is box filters and
 elementwise algebra over the [H, W, D] volume — no sequential scans at
 all, so unlike SGM it has no recurrence to serialize, trivially
-vectorizes over the disparity lane axis, and shards over image tiles
+vectorizes over the disparity axis, and shards over image tiles
 with plain halos (no carry hand-off, no direction families).  It is the
 low-latency quality/speed point between raw WTA and full SGM.
 
@@ -32,10 +32,9 @@ Semantics:
   widen-on-load discipline).
 * ``subsample=s`` > 1 switches to the Fast Guided Filter (He & Sun
   2015): all window statistics are computed on an s x-downsampled grid
-  (bilinear ``jax.image.resize`` both ways — einsum-based on TPU, no
-  gathers) and the per-window linear model is bilinearly upsampled
+  (bilinear ``jax.image.resize`` both ways) and the per-window linear model is bilinearly upsampled
   before the final ``q = a*I + b``.  The box-filter arithmetic — the
-  dominant VPU cost at full resolution, ~2*(2r+1) adds per element per
+  dominant cost at full resolution, ~2*(2r+1) adds per element per
   statistic — shrinks by s^2 while edges stay sharp because the model
   is still applied against the FULL-resolution guide.  Approximate by
   construction (published quality is near-indistinguishable for
@@ -53,33 +52,14 @@ import jax.numpy as jnp
 from jax import lax
 
 
-def _box_sum_sym(x: jnp.ndarray, radius: int, axes=(0, 1),
-                 use_mxu=None) -> jnp.ndarray:
+def _box_sum_sym(x: jnp.ndarray, radius: int, axes=(0, 1)) -> jnp.ndarray:
     """Separable clipped box sum over a symmetric (2r+1) window.
 
     Out-of-image taps contribute zero (additive identity), which is the
     window-clipping semantic once sums are normalized by the in-image
-    tap count.  The leading axis of float arrays rides the MXU as a
-    banded contraction where it is short enough (ops/cost.py:
-    mxu_leading_box — same measured win as the SSD box pass).
-
-    ``use_mxu`` pins the leading-axis lowering explicitly.  The sharded
-    callers MUST pass the decision computed from the GLOBAL image height
-    (``mxu_leading_box_ok(global_H, f32)``): deciding from the local
-    padded tile height can put the tile and the full image on opposite
-    sides of the threshold, silently breaking the documented bit-exact
-    sharded parity by the einsum-vs-reduce_window rounding delta
-    (~4e-7 rel — enough to flip WTA ties).  ``None`` (single-chip)
-    decides from ``x``'s own leading length, which IS the global one.
+    tap count.  One ``reduce_window`` per axis.
     """
-    from .cost import mxu_leading_box, mxu_leading_box_ok
-
-    if use_mxu is None:
-        use_mxu = x.ndim >= 2 and mxu_leading_box_ok(x.shape[0], x.dtype)
     for ax in axes:
-        if use_mxu and ax == 0 and x.ndim >= 2:
-            x = mxu_leading_box(x, radius, radius)
-            continue
         window = [1] * x.ndim
         padding = [(0, 0)] * x.ndim
         window[ax] = 2 * radius + 1
@@ -118,8 +98,7 @@ def _prefix_planes_w(plane: jnp.ndarray, radius: int):
     return hi, lo, p
 
 
-def _filter_body_wedge(volume, guide, radius, eps, wedge_offset,
-                       use_mxu=None):
+def _filter_body_wedge(volume, guide, radius, eps, wedge_offset):
     """Masked guided filter when the invalid set is the STATIC wedge
     ``x < d + wedge_offset`` (the standard SSD/SAD invalid structure,
     ssd.cu:58-60) — same masked-mean semantics as ``_filter_body`` with
@@ -137,18 +116,13 @@ def _filter_body_wedge(volume, guide, radius, eps, wedge_offset,
     * only 4 genuine volume statistics remain (p0, g*p0, a, b — 8
       separable box passes instead of 14).
 
-    Measured at teddy 450x375 D=128 r=8: 4.92 -> 3.56 ms
-    (benchmarks/cvf_probe_r4_out.json; the prefix-difference/cumsum
-    box — VERDICT r3's integral-image suggestion — measured 17-30 ms
-    there: XLA:TPU materializes every log-depth cumsum pass, rejected).
-
     Exactness: same masked means, different association — within
     ~2e-6 rel of ``_filter_body`` (probe check), NOT bit-identical.
     """
     h, w = guide.shape
     d = volume.shape[2]
     r = radius
-    box = functools.partial(_box_sum_sym, radius=r, use_mxu=use_mxu)
+    box = functools.partial(_box_sum_sym, radius=r)
 
     x_id = lax.broadcasted_iota(jnp.int32, (w, d), 0)
     d_id = lax.broadcasted_iota(jnp.int32, (w, d), 1) + wedge_offset
@@ -163,13 +137,13 @@ def _filter_body_wedge(volume, guide, radius, eps, wedge_offset,
     s_gp = box(g * p0)                                       # 2 vol passes
 
     # Guide statistics from [H, W] planes + elementwise reconstruction.
-    g1 = _box_sum_sym(i32, r, axes=(0,), use_mxu=use_mxu)
-    g2 = _box_sum_sym(i32 * i32, r, axes=(0,), use_mxu=use_mxu)
+    g1 = _box_sum_sym(i32, r, axes=(0,))
+    g2 = _box_sum_sym(i32 * i32, r, axes=(0,))
     hi1, lo1, p1 = _prefix_planes_w(g1, r)
     hi2, lo2, p2 = _prefix_planes_w(g2, r)
     # Pd[y, dd] = P[y, clip(dd + offset, 0, W)]: contiguous prefix
     # columns (edge-pad if offset + D overruns) — a static slice, not a
-    # gather (XLA:TPU lowers arbitrary gathers to scalar loops).
+    # gather.
     lo_col = max(0, min(wedge_offset, w))
     overrun = max(0, lo_col + d - (w + 1))
     p1e = jnp.pad(p1, ((0, 0), (0, overrun)), mode="edge")
@@ -200,24 +174,22 @@ def _filter_body_wedge(volume, guide, radius, eps, wedge_offset,
                      jnp.float32(jnp.inf)).astype(volume.dtype)
 
 
-def _filter_stats(p32, i32, radius, eps, assume_finite, use_mxu=None):
+def _filter_stats(p32, i32, radius, eps, assume_finite):
     """First guided-filter stage: per-window linear model (a, b).
 
     Every volume-shaped statistic gets its OWN box call.  Rounds 1-2
     stacked them on the D axis to "save materializations" (the old ZNCC
-    idiom), but the round-3 SSD lesson measured the opposite: XLA fuses
-    each elementwise producer (``guide * p0`` etc.) straight INTO its
-    ``reduce_window``, while a ``concatenate`` materializes every
-    operand first — separate calls are bit-identical (windows span only
-    (H, W); lanes independent) and moved the teddy cvf stage from 7.57
-    to 5.03 ms (benchmarks/cvf_ab_r3_out.json).
+    idiom), but XLA fuses each elementwise producer (``guide * p0``
+    etc.) straight INTO its ``reduce_window``, while a ``concatenate``
+    materializes every operand first — separate calls are bit-identical
+    (windows span only (H, W); slices independent).
 
     Returns (a, b, finite, box, count): ``finite`` is the validity mask
     (None when assume_finite); ``count`` is the normalizer the second
     stage reuses (stage 2's window-count statistic is the same
     ``box(valid)`` — no recompute).
     """
-    box = functools.partial(_box_sum_sym, radius=radius, use_mxu=use_mxu)
+    box = functools.partial(_box_sum_sym, radius=radius)
     guide = i32[:, :, None]
 
     if assume_finite:
@@ -305,7 +277,7 @@ def _filter_body_fast(volume, guide, radius, eps, assume_finite,
 
 
 def _filter_body(volume, guide, radius, eps, assume_finite, subsample=1,
-                 wedge_offset=None, use_mxu=None):
+                 wedge_offset=None):
     # Trace-time checks shared by both entry points (the CLIs take bare
     # int/float flags; fail with a clear message, not a reduce_window
     # shape error or an inf/NaN division at runtime).
@@ -326,42 +298,15 @@ def _filter_body(volume, guide, radius, eps, assume_finite, subsample=1,
         if wedge_offset < 0:
             raise ValueError(f"wedge_offset must be >= 0, got "
                              f"{wedge_offset}")
-        # The fused Pallas kernel (ops/cvf_pallas.py) streams the volume
-        # once instead of 8 box passes: 3.55 -> 2.50 ms at teddy —
-        # faster than the SGM stage, finally earning CVF's low-latency
-        # positioning.  TPU-only (Mosaic), radius >= 1, and gated to
-        # geometries whose working set fits VMEM (HD falls back).
-        import jax as _jax
-        from .cvf_pallas import (fused_wedge_fits,
-                                 guided_filter_wedge_chunked_pallas,
-                                 guided_filter_wedge_pallas,
-                                 pick_chunk_width)
-        h, w = guide.shape
-        if _jax.default_backend() == "tpu" and radius >= 1:
-            if fused_wedge_fits(h, w, volume.shape[2], radius,
-                                volume.dtype.itemsize):
-                return guided_filter_wedge_pallas(
-                    volume, guide, radius=radius, eps=eps,
-                    wedge_offset=int(wedge_offset))
-            # Round 5: geometries whose full-width state overflows VMEM
-            # (HD) stream through the W-chunked variant — measured 88 ->
-            # ~34 ms at 1024x1280 D=256 vs the XLA wedge fallback,
-            # whose 17-tap reduce_window windows lose cache locality at
-            # HD row sizes (benchmarks/cvf_ring_probe_r5, HD section).
-            if pick_chunk_width(w, volume.shape[2], radius,
-                                volume.dtype.itemsize) is not None:
-                return guided_filter_wedge_chunked_pallas(
-                    volume, guide, radius=radius, eps=eps,
-                    wedge_offset=int(wedge_offset))
         return _filter_body_wedge(volume, guide, radius, eps,
-                                  int(wedge_offset), use_mxu=use_mxu)
+                                  int(wedge_offset))
     if subsample > 1:
         return _filter_body_fast(volume, guide, radius, eps,
                                  assume_finite, subsample)
     p32 = volume.astype(jnp.float32)
     i32 = guide.astype(jnp.float32)
     a, b, finite, box, count = _filter_stats(p32, i32, radius, eps,
-                                             assume_finite, use_mxu=use_mxu)
+                                             assume_finite)
 
     # Second stage: each output pixel averages the linear models of every
     # window that contains it.  Under masking only windows centered at a
@@ -380,14 +325,12 @@ def _filter_body(volume, guide, radius, eps, assume_finite, subsample=1,
 
 @functools.partial(jax.jit,
                    static_argnames=("radius", "eps", "assume_finite",
-                                    "subsample", "wedge_offset",
-                                    "use_mxu"))
+                                    "subsample", "wedge_offset"))
 def guided_filter_aggregate(cost_volume: jnp.ndarray, guide: jnp.ndarray,
                             *, radius: int = 8, eps: float = 1e-4,
                             assume_finite: bool = False,
                             subsample: int = 1,
-                            wedge_offset=None,
-                            use_mxu=None) -> jnp.ndarray:
+                            wedge_offset=None) -> jnp.ndarray:
     """Edge-aware local aggregation: guided-filter each disparity slice.
 
     Args:
@@ -411,9 +354,9 @@ def guided_filter_aggregate(cost_volume: jnp.ndarray, guide: jnp.ndarray,
           (SSD/SAD/Birchfield volumes — the cost producer's
           disparity_offset), pass it here: the three masked guide
           statistics collapse from volume box passes to [H, W]
-          prefix-plane algebra (4.92 -> 3.56 ms at teddy, see
-          _filter_body_wedge).  Same masked-mean semantics to ~2e-6
-          rel; the volume's actual +inf pattern MUST equal the wedge.
+          prefix-plane algebra (see _filter_body_wedge).  Same
+          masked-mean semantics to ~2e-6 rel; the volume's actual +inf
+          pattern MUST equal the wedge.
     """
     if cost_volume.ndim != 3:
         raise ValueError(f"cost_volume must be [H, W, D], got "
@@ -423,15 +366,14 @@ def guided_filter_aggregate(cost_volume: jnp.ndarray, guide: jnp.ndarray,
                          f"spatial dims {cost_volume.shape[:2]}")
     return _filter_body(cost_volume, guide, int(radius), float(eps),
                         bool(assume_finite), int(subsample),
-                        wedge_offset=wedge_offset, use_mxu=use_mxu)
+                        wedge_offset=wedge_offset)
 
 
 def guided_filter_from_padded(volume_padded: jnp.ndarray,
                               guide_padded: jnp.ndarray,
                               pad_before: int, pad_after: int,
                               *, radius: int = 8, eps: float = 1e-4,
-                              assume_finite: bool = False,
-                              use_mxu=None) -> jnp.ndarray:
+                              assume_finite: bool = False) -> jnp.ndarray:
     """Row-sharded body: filter a tile carrying halo rows, crop the halo.
 
     Both filter stages are box means, so the output at row y depends on
@@ -448,12 +390,8 @@ def guided_filter_from_padded(volume_padded: jnp.ndarray,
     ring-end zero fill does not guarantee — the sharded layer therefore
     always uses the masked path and poisons out-of-image halo rows to
     +inf instead.
-
-    ``use_mxu`` must carry the GLOBAL-geometry lowering decision
-    (``mxu_leading_box_ok(global_H, f32)``), not be left to the local
-    padded tile height — see _box_sum_sym.
     """
     out = _filter_body(volume_padded, guide_padded, int(radius),
-                       float(eps), bool(assume_finite), use_mxu=use_mxu)
+                       float(eps), bool(assume_finite))
     height = out.shape[0] - pad_before - pad_after
     return lax.dynamic_slice_in_dim(out, pad_before, height, axis=0)

@@ -3,9 +3,9 @@ left-right consistency (functional, jittable).
 
 Beyond the reference's capability surface (its pipeline stops at integer
 WTA/DP disparities) — these are the standard production-stereo refinement
-steps, built TPU-style: everything is a vectorized [H, W] map operation
-(lane-friendly gathers and sorting networks), no data-dependent control
-flow.
+steps, built as array programs: everything is a vectorized [H, W] map
+operation (masked reductions and sorting networks), no data-dependent
+control flow.
 """
 
 from __future__ import annotations
@@ -34,13 +34,11 @@ def subpixel_refine(cost_volume: jnp.ndarray,
     back to the integer estimate; the offset is clamped to [-0.5, 0.5]
     (the vertex of a valid local minimum always lies within).
 
-    TPU formulation: a per-pixel depth gather (``take_along_axis`` at
-    d-1/d/d+1) is an arbitrary gather, which XLA:TPU lowers to
-    element-at-a-time loops — measured 5.5 ms on the teddy volume, worse
-    than the whole pipeline.  The three samples are instead one-hot
-    masked reductions over the D lane axis (exactly one selected element
-    per sum, the rest exactly 0.0, so values are bit-identical to the
-    gather): one fused O(H*W*D) vector sweep, ~0.3 ms.  At the borders
+    Formulation: instead of a per-pixel depth gather (``take_along_axis``
+    at d-1/d/d+1), the three samples are one-hot masked reductions over
+    the D axis (exactly one selected element per sum, the rest exactly
+    0.0, so values are bit-identical to the gather): one fused O(H*W*D)
+    vector sweep.  At the borders
     the shifted masks select nothing and yield 0 instead of the clamped
     plane — irrelevant, since ``interior`` already discards d=0/D-1.
     """
@@ -67,7 +65,7 @@ def subpixel_refine(cost_volume: jnp.ndarray,
 def median_filter_3x3(disparity: jnp.ndarray) -> jnp.ndarray:
     """3x3 median (edge-replicated), the classic speckle cleaner.
 
-    Stacks the 9 neighbor planes and takes the middle of a lane-parallel
+    Stacks the 9 neighbor planes and takes the middle of a per-pixel
     sort — O(H*W*9 log 9) elementwise work, no gathers.
     """
     x = disparity.astype(jnp.float32)
@@ -93,8 +91,7 @@ def left_right_consistency(disp_left: jnp.ndarray,
     projections are inconsistent.  Returns a bool [H, W] mask (True =
     consistent).
 
-    TPU formulation: ``dR[y, x - dL]`` is a per-pixel dynamic gather
-    (scalar loops on XLA:TPU — measured 1.6 ms at teddy scale).  Instead
+    Formulation: ``dR[y, x - dL]`` is a per-pixel dynamic gather; instead
     scan the disparity range: step d tests, for pixels with dL == d, the
     statically-shifted plane dR[y, x - d] (a dynamic_slice of a padded
     copy — the same full-range streaming pattern as the pyramid's band
@@ -143,13 +140,12 @@ def confidence_pkrn(cost_volume: jnp.ndarray) -> jnp.ndarray:
 
     1 means an unambiguous minimum, 0 a tie — the standard matching
     confidence used to gate downstream consumers.  +inf (invalid
-    disparity) lanes are ignored; pixels with fewer than two finite
+    disparity) entries are ignored; pixels with fewer than two finite
     hypotheses get confidence 0.
 
     The two smallest values come from two masked min-sweeps over the
-    lane axis (``lax.top_k`` lowers to a full per-pixel sort on XLA:TPU
-    — measured 4.3 ms at teddy scale vs ~0.3 ms for the sweeps): c1 is
-    the plain min; c2 re-mins with the c1 lanes knocked out, except that
+    D axis (instead of ``lax.top_k``, a per-pixel sort): c1 is the
+    plain min; c2 re-mins with the c1 entries knocked out, except that
     a duplicated minimum makes c2 = c1 — exactly top_k's multiset
     semantics.
     """
@@ -185,15 +181,14 @@ def weighted_median_filter(disparity: jnp.ndarray, guide: jnp.ndarray, *,
     everywhere.  Returns the smallest bin whose cumulative weight reaches
     half the total, in the input dtype.
 
-    TPU formulation: sorting (value, weight) pairs per pixel is a gather
-    fest, and the round 1-3 one-hot histogram (window^2 shifted planes x
-    n_bins lanes) pays O(window^2 * n_bins) vector work — 3.5 ms at
-    teddy, more than the whole SGM stage it post-filters (VERDICT r3
-    weak #3).  The weighted median is instead found by *binary search
+    Formulation: sorting (value, weight) pairs per pixel is a gather
+    fest, and a one-hot histogram (window^2 shifted planes x n_bins)
+    pays O(window^2 * n_bins) vector work.  The weighted median is
+    instead found by *binary search
     over bins*: it is the smallest b with W(b) = sum_q w_q [v_q <= b]
     >= total/2, and W(b) is monotone in b, so ceil(log2(n_bins)) rounds
     of a per-pixel vectorized bisection — each round one windowed
-    compare-accumulate over [H, W] PLANES, no lane axis at all — pin it
+    compare-accumulate over [H, W] PLANES, no bin axis at all — pin it
     exactly.  O(window^2 * log n_bins) work, same predicate as the
     histogram-cumsum form (identical result up to f32 summation order),
     no gathers, no sorts.
@@ -366,9 +361,9 @@ def fgs_smooth(disparity: jnp.ndarray, guide: jnp.ndarray, *,
     filter fills occlusions.  ``sigma_color`` is in guide intensity
     units (~8 for 8-bit-range guides).  Returns float32.
 
-    TPU formulation: each 1-D subproblem is a tridiagonal solve — two
+    Formulation: each 1-D subproblem is a tridiagonal solve — two
     ``lax.scan`` sweeps with [rows]-vectorized carries, the same
-    sequential-scan-times-vector-lanes shape as the DP reducer; no
+    sequential-scan-over-vectorized-rows shape as the DP reducer; no
     gathers, no iteration to a fixpoint, no sparse solver.
     """
     u = disparity.astype(jnp.float32)
@@ -405,7 +400,7 @@ def speckle_mask(disparity: jnp.ndarray, *, max_diff: float = 1.0,
     coherent surfaces keep near-full support.  Normalizing by the
     in-image window count keeps the criterion fair at borders/corners.
 
-    TPU formulation: the region-growing speckle filters of CPU stereo
+    Formulation: the region-growing speckle filters of CPU stereo
     stacks (flood-fill connected components, then a size threshold) are
     pointer-chasing and data-dependent — hostile to XLA.  This windowed
     support test is ``window**2`` shifted compare-accumulates on the
@@ -497,7 +492,7 @@ def right_volume_from_left(cost_volume: jnp.ndarray) -> jnp.ndarray:
     right-image aggregation (the smoothing paths followed left-image
     geometry), which is exactly the approximation production SGBM makes.
 
-    TPU formulation: the diagonal re-index is a per-pixel gather in
+    Formulation: the diagonal re-index is a per-pixel gather in
     general, but per disparity plane it is a static W-shift — so stream
     the D planes with ``dynamic_slice`` starts at (0, d, d) on a +inf
     right-padded copy, the same full-range plane-scan pattern as

@@ -1,14 +1,16 @@
-"""Multi-chip execution layer: device meshes, halo exchange, sharded pipelines.
+"""Multi-device execution layer: device meshes, halo exchange, sharded
+pipelines.
 
 The reference implementation is single-process / single-GPU (SURVEY.md §2:
 no distributed communication of any kind).  This package is the new-design
-territory that makes the same algorithms span a TPU pod slice:
+territory that makes the same algorithms span several devices:
 
 * ``mesh``    — device-mesh construction over (batch, tile) axes: ``batch``
-  data-parallel over stereo frames (DCN-friendly), ``tile`` spatial-parallel
-  over image rows (ICI-resident collectives).
+  data-parallel over stereo frames, ``tile`` spatial-parallel over image
+  rows.
 * ``halo``    — edge-row exchange between neighboring tile owners via
-  ``lax.ppermute`` (the ICI analogue of CUDA shared-memory aprons).
+  ``lax.ppermute`` (the multi-device analogue of CUDA shared-memory
+  aprons).
 * ``sharded`` — shard_map'd cost / SGM / reduction pipeline with two
   scan-splitting strategies for the path recurrences that cross tile
   boundaries: exact sequential carry hand-off, and overlap warm-up

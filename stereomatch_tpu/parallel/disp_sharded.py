@@ -7,7 +7,7 @@ of D every scan step, so a D-shard would put a collective inside every step
 however, disparity blocks are embarrassingly parallel: each chip builds the
 cost volume for its block [offset, offset + D/n) from the (replicated,
 small) input images — no halos at all — and takes a local argmin.  The
-global argmin is two tiny ICI reductions over [H, W] maps:
+global argmin is two tiny cross-device reductions over [H, W] maps:
 
     global_min  = pmin(local_min)
     disparity   = pmin(local_argmin where local_min == global_min else MAX)
@@ -101,7 +101,7 @@ def make_disp_sharded_wta(mesh: Mesh, *, max_disparity: int,
             # offset + block <= max_disparity <= W + 1; assert it here
             # at trace time (shapes are static) so a violating geometry
             # fails loudly instead of silently reading clamped prefix
-            # columns (ADVICE r4).
+            # columns.
             if max_disparity > left.shape[1] + 1:
                 raise ValueError(
                     f"disparity-sharded ncc needs max_disparity "

@@ -1,9 +1,9 @@
 """Halo (edge-row) exchange between neighboring tile owners.
 
-TPU-native replacement for the CUDA kernels' shared-memory aprons: each chip
-owns a contiguous block of image rows, and window/scan operators that reach
-across the block boundary pull the needed rows from the neighbor over ICI
-with ``lax.ppermute``.  All functions here are meant to run *inside* a
+Multi-device replacement for the CUDA kernels' shared-memory aprons: each
+device owns a contiguous block of image rows, and window/scan operators that
+reach across the block boundary pull the needed rows from the neighbor with
+``lax.ppermute``.  All functions here are meant to run *inside* a
 ``shard_map`` body over the tile axis.
 
 ``ppermute`` fills zeros at ring ends (shard 0 has no predecessor), which is

@@ -1,30 +1,30 @@
-"""Analytic ICI traffic / scaling-efficiency model — and its consumers.
+"""Analytic interconnect traffic / scaling-efficiency model — and its
+consumers.
 
-Round 2 produced this model as a benchmark artifact
-(benchmarks/ici_model.json); round 4 moves it into the package so the
-parallel layer can ACT on it (VERDICT r3 missing #3): ``select_sgm_mode``
-picks the row-sharded SGM strategy from (tiles, geometry) predictions,
-and the exact mode's serial carry chain is hidden behind the batch axis
-(parallel/sharded.py::_handoff_sweep's frame pipeline), which this model
-prices via ``batch``.
+``select_sgm_mode`` picks the row-sharded SGM strategy from (tiles,
+geometry) predictions, and the exact mode's serial carry chain is hidden
+behind the batch axis (parallel/sharded.py::_handoff_sweep's frame
+pipeline), which this model prices via ``batch``.
 
-Real N-chip hardware does not exist on this dev box, so scaling
-efficiency is *predicted* from first principles: count the bytes each
-config moves over ICI per frame (halos, carries, reduction combines —
-formulas read off the shard_map bodies in parallel/), compare them with
-the per-chip HBM bytes of the compute itself, and model efficiency as
-hbm_time / (hbm_time + ici_time + serialization).  ``ici_gbps`` defaults
-to a deliberately conservative per-link v5e figure; pass the measured
-value on real pods.
+Scaling efficiency is *predicted* from first principles: count the bytes
+each config moves between devices per frame (halos, carries, reduction
+combines — formulas read off the shard_map bodies in parallel/), compare
+them with the per-device memory bytes of the compute itself, and model
+efficiency as mem_time / (mem_time + link_time + serialization).  The
+rates are the device's published figures (utils/devices.py — on the
+H100, NVLink at 450 GB/s each way and HBM at 3.35 TB/s); a device with no
+published figures is an error, so callers on other devices pass their
+rates explicitly.  ``hop_latency_us`` is a modelling assumption for one
+collective hop, not a measured figure.
 """
 
 from __future__ import annotations
 
 
-def ici_traffic_model(*, height, width, disp, tiles, kernel=7, overlap=48,
-                      cvf_radius=8, itemsize=4, ici_gbps=45.0,
-                      hbm_gbps=675.0, hop_latency_us=5.0, batch=1):
-    """Per-config ICI traffic and predicted scaling efficiency.
+def ici_traffic_model(*, height, width, disp, tiles, link_gbps, hbm_gbps,
+                      kernel=7, overlap=48, cvf_radius=8, itemsize=4,
+                      hop_latency_us=5.0, batch=1):
+    """Per-config interconnect traffic and predicted scaling efficiency.
 
     ``batch`` is the local frames per chip: the exact SGM hand-off runs
     as a (frame, tile) wavefront, so its serialization cost amortizes as
@@ -38,21 +38,21 @@ def ici_traffic_model(*, height, width, disp, tiles, kernel=7, overlap=48,
     hl = height // T
     rows = []
 
-    def add(name, ici_bytes, serial_stages, compute_scale=1.0, note=""):
+    def add(name, link_bytes, serial_stages, compute_scale=1.0, note=""):
         # Per-chip compute: the full pipeline moves ~16 volume-sized HBM
         # transfers (cost ~5, SGM ~10, WTA ~1); each chip owns 1/T of it.
         hbm_bytes = 16 * vol * compute_scale / T
         hbm_ms = hbm_bytes / 1e9 / hbm_gbps * 1e3
-        ici_ms = (ici_bytes / 1e9 / ici_gbps * 1e3
-                  + serial_stages * hop_latency_us / 1e3)
+        link_ms = (link_bytes / 1e9 / link_gbps * 1e3
+                   + serial_stages * hop_latency_us / 1e3)
         rows.append({
             "config": name, "tiles": T,
-            "ici_bytes_per_frame": int(ici_bytes),
-            "ici_vs_volume": round(ici_bytes / vol, 4),
+            "link_bytes_per_frame": int(link_bytes),
+            "link_vs_volume": round(link_bytes / vol, 4),
             "serial_stages": serial_stages,
             "hbm_bytes_per_chip": int(hbm_bytes),
-            "ici_ms": round(ici_ms, 4), "hbm_ms": round(hbm_ms, 4),
-            "predicted_efficiency": round(hbm_ms / (hbm_ms + ici_ms), 3),
+            "link_ms": round(link_ms, 4), "hbm_ms": round(hbm_ms, 4),
+            "predicted_efficiency": round(hbm_ms / (hbm_ms + link_ms), 3),
             "note": note,
         })
 
@@ -61,7 +61,7 @@ def ici_traffic_model(*, height, width, disp, tiles, kernel=7, overlap=48,
 
     # Row-sharded SGM, exact carry hand-off (parallel/sharded.py): a
     # 3-family [3, W, D] carry per boundary, forward + reverse, f32 over
-    # ICI regardless of storage dtype.  The hand-off serializes
+    # the links regardless of storage dtype.  The hand-off serializes
     # 2 * (T + B - 1) wavefront stages over B frames: per frame, the
     # serialization amortizes with the batch.
     add("sgm_exact",
@@ -137,10 +137,8 @@ def select_exact_schedule(*, tiles, batch, vmap_eff=0.585):
 
     Cost model (chunk units): naive = tiles * batch * vmap_eff,
     wavefront = tiles + batch - 1.  ``vmap_eff`` = 0.585 is fitted from
-    the round-4 CPU-mesh measurement (exact_pipeline_ab_r4_out.json:
-    batch 2 naive 27.44 vs wavefront 29.23 ms; batch 4 wavefront 1.33x)
-    — the same data that exposed round 4's unconditional wavefront as a
-    batch-2 regression.  At batch 1 the two schedules are literally the
+    a CPU-mesh A/B (batch 2: naive 27.44 vs wavefront 29.23 ms; batch 4:
+    wavefront 1.33x faster) — not yet re-measured on GPUs.  At batch 1 the two schedules are literally the
     same computation; naive is returned for its simpler loop.
     """
     T, B = max(tiles, 1), max(batch, 1)
@@ -155,8 +153,12 @@ def select_exact_schedule(*, tiles, batch, vmap_eff=0.585):
 
 
 def select_sgm_mode(*, height, width, disp, tiles, batch=1, overlap=64,
-                    ici_gbps=45.0, hbm_gbps=675.0):
+                    link_gbps=None, hbm_gbps=None, device_kind=None):
     """Pick the row-sharded SGM strategy from the model's predictions.
+
+    Rates default to the published figures of ``device_kind`` (default:
+    JAX's first device) from utils/devices.py, which raises for a device
+    it has no figures for.
 
     Returns (mode, info): mode is "exact" or "overlap"; info carries both
     configs' predicted efficiencies for logging (dryrun_multichip prints
@@ -167,9 +169,16 @@ def select_sgm_mode(*, height, width, disp, tiles, batch=1, overlap=64,
     frames per chip, many tiles).  The frame-pipelined hand-off
     (batch > 1) usually tips the balance back to exact.
     """
+    if link_gbps is None or hbm_gbps is None:
+        from ..utils.devices import device_spec
+        spec = device_spec(device_kind)
+        link_gbps = spec.link_bytes_per_s / 1e9 if link_gbps is None \
+            else link_gbps
+        hbm_gbps = spec.hbm_bytes_per_s / 1e9 if hbm_gbps is None \
+            else hbm_gbps
     rows = {r["config"]: r for r in ici_traffic_model(
         height=height, width=width, disp=disp, tiles=tiles, batch=batch,
-        overlap=overlap, ici_gbps=ici_gbps, hbm_gbps=hbm_gbps)}
+        overlap=overlap, link_gbps=link_gbps, hbm_gbps=hbm_gbps)}
     exact = rows["sgm_exact"]
     over = rows["sgm_overlap"]
     mode = ("exact" if exact["predicted_efficiency"]

@@ -2,14 +2,15 @@
 
 Mesh axes:
   * ``batch`` — data parallelism over independent stereo frames (video
-    batching across hosts; maps onto DCN when spanning hosts).  No
-    communication crosses this axis.
+    batching, also across hosts).  No communication crosses this axis.
   * ``tile``  — spatial parallelism over image rows (the H axis of the
     [H, W, D] cost volume).  Halo exchange and SGM carry hand-off ride this
-    axis, so it should be laid out over ICI (within a host / slice).
+    axis, so it should stay within one host, where the cards are joined
+    all to all (NVLink on the H100: every pair at the same rate, so the
+    tile order needs no topology-aware layout).
 
-The disparity axis D is deliberately *not* sharded: it is the TPU lane axis
-(128-wide) of every kernel, and the SGM/DP recurrences reduce over it each
+The disparity axis D is deliberately *not* sharded: it is the innermost
+axis of every kernel, and the SGM/DP recurrences reduce over it each
 step (semiglobal.cpp:146-152) — sharding it would put a collective inside
 every scan step.
 """
@@ -79,12 +80,12 @@ def initialize_distributed(**kwargs) -> None:
 
 def make_hybrid_mesh(n_batch_hosts: Optional[int] = None,
                      n_tile: Optional[int] = None) -> Mesh:
-    """(batch, tile) mesh for a multi-host slice: batch over DCN, tile ICI.
+    """(batch, tile) mesh across hosts: batch spans hosts, tile stays in one.
 
     Frames are data-parallel across hosts (the ``batch`` axis carries no
-    collectives, so host-to-host DCN latency never sits on the compute
-    path), while each host's chips split image rows over ICI.  Falls back
-    to :func:`make_mesh` in a single-host process.
+    collectives, so host-to-host latency never sits on the compute path),
+    while each host's devices split image rows.  Falls back to
+    :func:`make_mesh` in a single-host process.
     """
     from jax.experimental import mesh_utils
 
@@ -116,8 +117,8 @@ def make_mesh(devices: Optional[Sequence] = None,
               n_tile: Optional[int] = None) -> Mesh:
     """Build a (batch, tile) mesh over the given (default: all) devices.
 
-    The tile axis is contiguous in device order so that ppermute neighbor
-    hops are single ICI hops on a standard slice topology.
+    The tile axis is contiguous in device order; each mesh position holds
+    a distinct device.
     """
     if devices is None:
         devices = jax.devices()

@@ -13,7 +13,7 @@ pipeline already uses (parallel/sharded.py):
   row halos; ppermute's zero fill at ring ends IS the census
   out-of-image convention).
 * The coarse SGM reuses the sharded sweeps — exact carry hand-off or
-  overlap warm-up, XLA or Pallas.
+  overlap warm-up, on the XLA scans or the Hopper kernel.
 * The band refinement is row-local along W/D by construction (that is
   why it exists — see pyramid.py), needing only census-window image
   halos; anchor values in halo rows are irrelevant because halo outputs
@@ -36,9 +36,7 @@ from ..pyramid import band_refine_census, downsample2, upsample2_nearest
 from ..utils.backend import resolve_backend
 from . import halo
 from .mesh import BATCH_AXIS, TILE_AXIS
-from .sharded import (_local_census, _median3x3_rows,
-                      _pallas_exact_semiglobal,
-                      _pallas_overlap_semiglobal, _speckle_rows,
+from .sharded import (_local_census, _median3x3_rows, _speckle_rows,
                       sharded_semiglobal)
 
 
@@ -96,8 +94,7 @@ def make_pyramid_sharded_estimate(mesh, *, max_disparity: int,
                                   subpixel: bool = False,
                                   median: bool = True,
                                   speckle: bool = False,
-                                  speckle_fill: str = "zero",
-                                  interpret: bool = False):
+                                  speckle_fill: str = "zero"):
     """Compile the coarse-to-fine pyramid over a (batch, tile) mesh.
 
     Returns a jitted ``fn(left, right) -> disparity`` over batched
@@ -116,7 +113,6 @@ def make_pyramid_sharded_estimate(mesh, *, max_disparity: int,
                          f"by 2**levels = {2 ** levels}")
     n_tiles = mesh.shape[TILE_AXIS]
     backend = resolve_backend(backend)
-    use_pallas = backend == "pallas"
     d_coarse = max_disparity // (2 ** levels)
 
     def local_fn(left, right):                     # [B_loc, Hl, W]
@@ -130,20 +126,10 @@ def make_pyramid_sharded_estimate(mesh, *, max_disparity: int,
         coarse_l, coarse_r = pyr[-1]
         vol = _local_census(coarse_l, coarse_r, max_disparity=d_coarse,
                             window_size=window_size, cost_dtype=cost_dtype)
-        if use_pallas and sgm_mode == "exact":
-            agg = _pallas_exact_semiglobal(
-                vol, coarse_l, penalty1=penalty1, penalty2=penalty2,
-                axis_name=TILE_AXIS, n_tiles=n_tiles, interpret=interpret)
-        elif use_pallas:
-            agg = _pallas_overlap_semiglobal(
-                vol, coarse_l, penalty1=penalty1, penalty2=penalty2,
-                axis_name=TILE_AXIS, n_tiles=n_tiles, overlap=overlap,
-                interpret=interpret)
-        else:
-            agg = sharded_semiglobal(vol, coarse_l, penalty1=penalty1,
-                                     penalty2=penalty2, axis_name=TILE_AXIS,
-                                     n_tiles=n_tiles, mode=sgm_mode,
-                                     overlap=overlap)
+        agg = sharded_semiglobal(vol, coarse_l, penalty1=penalty1,
+                                 penalty2=penalty2, axis_name=TILE_AXIS,
+                                 n_tiles=n_tiles, mode=sgm_mode,
+                                 overlap=overlap, backend=backend)
         disp = jax.vmap(winner_takes_all.__wrapped__)(agg)
 
         for level in range(levels - 1, -1, -1):
@@ -168,7 +154,7 @@ def make_pyramid_sharded_estimate(mesh, *, max_disparity: int,
 
     spec = P(BATCH_AXIS, TILE_AXIS, None)
     mapped = shard_map(local_fn, mesh=mesh, in_specs=(spec, spec),
-                       out_specs=spec, check_vma=(backend != "pallas"))
+                       out_specs=spec)
     sharding = NamedSharding(mesh, spec)
     return jax.jit(mapped, in_shardings=(sharding, sharding),
                    out_shardings=sharding)

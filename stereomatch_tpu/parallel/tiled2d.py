@@ -44,15 +44,13 @@ from jax import shard_map
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from . import halo
-from ..ops import sgm_pallas
-from ..ops.aggregation import semiglobal_aggregate
 from ..ops.cvf import guided_filter_aggregate
 from ..ops.cost import (birchfield_cost_volume, census_hamming_cost_volume,
                         sad_cost_from_padded, ssd_cost_from_padded,
                         zncc_cost_from_padded)
 from ..ops.disparity import (dp_backward_chunk, dp_forward_chunk,
                              winner_takes_all)
-from ..utils.backend import resolve_backend
+from ..utils.backend import resolve_backend, semiglobal_fn
 from .mesh import BATCH_AXIS, TILE_AXIS
 
 TILE_W_AXIS = "tile_w"
@@ -364,8 +362,7 @@ def make_tiled2d_estimate(mesh: Mesh, *, max_disparity: int,
                           wmf_window: int = 5,
                           min_confidence: Optional[float] = None,
                           speckle: bool = False,
-                          speckle_fill: str = "zero",
-                          interpret: bool = False) -> Callable:
+                          speckle_fill: str = "zero") -> Callable:
     """Compile cost + aggregation + reduce over a 2-D tile mesh.
 
     ``aggregation``: "sgm" (8-path semiglobal on the overlap-extended
@@ -416,11 +413,7 @@ def make_tiled2d_estimate(mesh: Mesh, *, max_disparity: int,
     p1, p2 = float(penalty1), float(penalty2)
 
     def aggregate(vol, img):
-        if backend == "pallas":
-            return sgm_pallas.semiglobal_aggregate_pallas.__wrapped__(
-                vol, img, penalty1=p1, penalty2=p2, interpret=interpret)
-        return semiglobal_aggregate.__wrapped__(vol, img, penalty1=p1,
-                                                penalty2=p2)
+        return semiglobal_fn(backend)(vol, img, penalty1=p1, penalty2=p2)
 
     def local_fn(left, right):                   # [B_loc, Hl, Wl]
         left = left.astype(jnp.float32)
@@ -449,12 +442,11 @@ def make_tiled2d_estimate(mesh: Mesh, *, max_disparity: int,
                                             k, k - 1)
 
         if cost == "ncc":
-            # Bit-equal centering + row-box lowering need GLOBAL
-            # geometry (see _local_zncc in sharded.py): per-row sums
-            # all-gathered over the row-tile axis, every chip
-            # re-reducing the identical [H] vector, and the MXU
-            # decision from the global height.
-            from ..ops.cost import mxu_leading_box_ok, pairwise_sum_last
+            # Bit-equal centering needs GLOBAL geometry (see _local_zncc
+            # in sharded.py): per-row sums all-gathered over the
+            # row-tile axis, every chip re-reducing the identical [H]
+            # vector.
+            from ..ops.cost import pairwise_sum_last
             h_glob = n_tile * h_loc
             w_glob = left_full.shape[2]
             rs_l = jax.lax.all_gather(pairwise_sum_last(left_full),
@@ -463,10 +455,8 @@ def make_tiled2d_estimate(mesh: Mesh, *, max_disparity: int,
                                       TILE_AXIS, axis=1, tiled=True)
             ncc_mean_l = pairwise_sum_last(rs_l) / (h_glob * w_glob)
             ncc_mean_r = pairwise_sum_last(rs_r) / (h_glob * w_glob)
-            ncc_use_mxu = mxu_leading_box_ok(h_glob, jnp.float32)
         else:
             ncc_mean_l = ncc_mean_r = jnp.zeros((batch,), jnp.float32)
-            ncc_use_mxu = None
 
         def cost_one_padded(le, re, ncc_ml, ncc_mr):
             if cost in ("ssd", "ssd-texture"):
@@ -482,7 +472,7 @@ def make_tiled2d_estimate(mesh: Mesh, *, max_disparity: int,
                     le[:-1], re[:-1], pad_before=k, pad_after=k - 1,
                     max_disparity=max_disparity, kernel_size=kernel_size,
                     row_valid=row_valid, left_mean=ncc_ml,
-                    right_mean=ncc_mr, use_mxu=ncc_use_mxu)
+                    right_mean=ncc_mr)
             elif cost == "census":
                 # Census needs window//2 halo rows; slice them out of
                 # the k-row extension (zero fill at true image edges is
@@ -539,13 +529,8 @@ def make_tiled2d_estimate(mesh: Mesh, *, max_disparity: int,
                                             w_loc, ov)[None, :])
             ext = jnp.where(oob[None, :, :, None],
                             jnp.asarray(jnp.inf, ext.dtype), ext)
-            # Lowering decision from the GLOBAL height (h_loc * n_tile),
-            # not the extended tile height — see ops/cvf.py::_box_sum_sym.
-            from ..ops.cost import mxu_leading_box_ok
-            use_mxu = mxu_leading_box_ok(h_loc * n_tile, jnp.float32)
             agg = jax.vmap(lambda v, g: guided_filter_aggregate(
-                v, g, radius=cvf_radius, eps=cvf_eps,
-                use_mxu=use_mxu))(ext, img_e)
+                v, g, radius=cvf_radius, eps=cvf_eps))(ext, img_e)
             agg = agg[:, ov:ov + h_loc, ov:ov + w_loc]
         else:
             agg = vol

@@ -1,7 +1,7 @@
 """Stereo-matching pipeline composition.
 
 Mirrors the reference's ``Pipeline`` (stereomatch/pipeline.py:36-94) with a
-TPU-native execution model:
+compiled-program execution model:
 
 * The reference runs cost / aggregation / reduce as three separate native
   calls, each ending in ``cudaDeviceSynchronize`` (kernel.hpp:50,59), and
@@ -9,7 +9,7 @@ TPU-native execution model:
   (pipeline.py:65-67).  Here ``estimate`` traces the whole
   cost -> (aggregation) -> reduce composition into ONE jitted XLA program:
   dispatch is async, stages fuse where profitable, and intermediates never
-  leave HBM.  Buffer reuse across frames is what XLA's allocator does
+  leave device memory.  Buffer reuse across frames is what XLA's allocator does
   natively for a compiled program — no caching idiom needed.
 
 * The reference re-uploads the left image to the GPU for aggregation

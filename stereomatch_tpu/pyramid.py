@@ -13,8 +13,7 @@ materialized at full resolution at all.
 The band stage is census-based on purpose: Hamming matching is
 *pixelwise*, so per-pixel dynamic band offsets need no windowed sums
 across neighbors (which would break the separable box-filter trick the
-windowed costs rely on) — a [H, W, 2r+1] gather plus popcount, which XLA
-lowers well on TPU.
+windowed costs rely on) — a [H, W, 2r+1] band of xor/popcount work.
 
 Accuracy trade-off: structures thinner than 2^levels pixels can vanish
 at the coarse level and a band of +-r cannot recover a miss larger than
@@ -39,9 +38,8 @@ from jax import lax
 
 from .ops.cost import census_hamming_cost_volume, census_transform
 from .ops.disparity import winner_takes_all
-from .ops.aggregation import semiglobal_aggregate
 from .utils import validation
-from .utils.backend import resolve_backend
+from .utils.backend import resolve_backend, semiglobal_fn
 
 
 def downsample2(image: jnp.ndarray) -> jnp.ndarray:
@@ -90,14 +88,12 @@ def band_refine_census(left: jnp.ndarray, right: jnp.ndarray,
     possible value) — the anchor-drift signal :class:`~stereomatch_tpu.
     temporal.TemporalPipeline` uses to decide when a keyframe is due.
 
-    TPU formulation: a per-pixel dynamic band is an arbitrary gather,
-    which XLA:TPU lowers to element-at-a-time loops (measured: the
-    take_along_axis form ran the teddy pyramid at 17 ms — 6x slower
-    than full resolution).  Instead the scan runs over the FULL
-    disparity axis as D static-shape dynamic slices of the right code
-    map, masking each plane to the band — O(H*W*D) pure VPU work
-    (xor/popcount/compare per plane), nothing but the two code maps and
-    the output touching HBM, and no [H, W, D] volume materialized.
+    Gather-free formulation: instead of a per-pixel dynamic gather, the
+    scan runs over the FULL disparity axis as D static-shape dynamic
+    slices of the right code map, masking each plane to the band —
+    O(H*W*D) elementwise work (xor/popcount/compare per plane), nothing
+    but the two code maps and the output touching device memory, and no
+    [H, W, D] volume materialized.
     """
     height, width = left.shape
     r = band_radius
@@ -123,7 +119,7 @@ def band_refine_census(left: jnp.ndarray, right: jnp.ndarray,
         if k2:
             # Windowed Hamming (band_kernel_size > 1): box-sum each
             # plane so the band WTA gets the neighborhood support the
-            # flat census cost's kernel_size provides — plane-local VPU
+            # flat census cost's kernel_size provides — plane-local
             # work, still no [H, W, D] volume.  Same-disparity windows
             # only (the band varies per pixel); columns left of the
             # d <= x validity edge contribute the worst Hamming value,
@@ -209,7 +205,7 @@ class PyramidPipeline:
       window_size: census window at every level.
       penalty1/penalty2: SGM penalties at the coarse level (applied to
         the coarse Hamming costs).
-      backend: 'auto' | 'pallas' | 'xla' for the coarse SGM.
+      backend: 'auto' | 'cuda' | 'xla' for the coarse SGM.
     """
 
     def __init__(self, max_disparity: int, *, levels: int = 1,
@@ -258,15 +254,9 @@ class PyramidPipeline:
         vol = census_hamming_cost_volume(
             coarse_l, coarse_r, max_disparity=d_coarse,
             window_size=self.window_size, cost_dtype=self.cost_dtype)
-        if self.backend == "pallas":
-            from .ops.sgm_pallas import semiglobal_aggregate_pallas
-            agg = semiglobal_aggregate_pallas(
-                vol, coarse_l, penalty1=self.penalty1,
-                penalty2=self.penalty2)
-        else:
-            agg = semiglobal_aggregate(vol, coarse_l,
-                                       penalty1=self.penalty1,
-                                       penalty2=self.penalty2)
+        agg = semiglobal_fn(self.backend)(vol, coarse_l,
+                                          penalty1=self.penalty1,
+                                          penalty2=self.penalty2)
         disp = winner_takes_all(agg)
 
         for level in range(self.levels - 1, -1, -1):

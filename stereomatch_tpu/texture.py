@@ -1,11 +1,11 @@
-"""Image sampling layer — the TPU equivalent of CUDA textures.
+"""Image sampling layer — array stand-in for CUDA textures.
 
 The reference wraps ``cudaArray`` + ``cudaTextureObject_t`` in a CUDATexture
 class (src/cuda_texture.cpp:23-172, stereomatch/cuda_texture.py:11-40) to get
-hardware-filtered, clamp-addressed image reads in kernels.  TPUs have no
-texture units, so the same *semantics* — clamp addressing, nearest or
-bilinear filtering, optional normalized coordinates — are provided as a
-gather-based sampler over an HBM-resident ``jax.Array``.  Sampling at integer
+hardware-filtered, clamp-addressed image reads in kernels.  Here the same
+*semantics* — clamp addressing, nearest or bilinear filtering, optional
+normalized coordinates — are provided as a gather-based sampler over a
+device-resident ``jax.Array``, so every backend XLA compiles for runs it.  Sampling at integer
 pixel centres with nearest filtering returns the stored image exactly, which
 is why the texture-backed SSD agrees bit-for-bit with the tensor path (the
 property the reference asserts in tests/test_cost.py:41-57).
@@ -164,8 +164,8 @@ class TextureImage:
 
         Nearest + unnormalized is exactly the stored image, so that case
         skips the gather (a CUDA texture would still route reads through
-        the sampler; a TPU has no such unit to feed, and the gather would
-        cost real HBM traffic for bit-identical output).
+        the sampler; here the gather would cost real memory traffic for
+        bit-identical output).
         """
         if (self.filter_mode == FilterMode.NEAREST
                 and not self.use_normalized_coords):

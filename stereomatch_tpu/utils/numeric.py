@@ -1,12 +1,10 @@
 """Small numeric helpers.
 
-TPU-native counterpart of the reference's ``stereomatch/numeric.py``
+Counterpart of the reference's ``stereomatch/numeric.py``
 (reference: stereomatch/numeric.py:5-26).  The reference needs power-of-two
 disparity counts because its CUDA reduction trees require them
-(src/winners_take_all.cu:65-75, src/semiglobal_gpu.cu:70-79).  The TPU build
-has no such constraint, but the helpers remain useful: the disparity axis maps
-to TPU vector lanes (width 128), so rounding D up to a power of two / lane
-multiple keeps tiles dense.
+(src/winners_take_all.cu:65-75, src/semiglobal_gpu.cu:70-79).  This build
+has no such constraint; the helpers remain for API parity.
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Argument validation for the ops API.
 
-TPU-native counterpart of the reference's native-side checking layer
+Counterpart of the reference's native-side checking layer
 (include/stereomatch/check.hpp:12-43 and src/type_dispatch.hpp:38-110).  The
 reference validates device placement and dispatches over (input dtype x cost
 dtype x device) in C++; under JAX, dtype polymorphism is native and device
@@ -17,7 +17,7 @@ import jax.numpy as jnp
 
 # dtypes accepted for input images, mirroring the reference's
 # STM_DISPATCH_COSTFUNC_TYPES input set (uint8 / int16 / float32)
-# plus TPU-preferred bfloat16.
+# plus bfloat16.
 IMAGE_DTYPES = (jnp.uint8, jnp.int16, jnp.float32, jnp.bfloat16)
 # dtypes accepted for cost volumes (reference: int32 / float32).
 COST_DTYPES = (jnp.int32, jnp.float32, jnp.bfloat16)

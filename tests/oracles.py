@@ -2,7 +2,7 @@
 
 These are deliberately slow, per-pixel implementations that follow the
 reference CUDA/C++ control flow one-to-one, used as the correctness anchor
-for the vectorized TPU ops — the same oracle pattern the reference uses
+for the vectorized JAX ops — the same oracle pattern the reference uses
 (its CPU kernels anchor its GPU kernels, tests/test_cost.py:41-57).
 
 Citations refer to /root/reference source locations.
@@ -101,7 +101,7 @@ def birchfield_oracle(left: np.ndarray, right: np.ndarray, max_disparity: int,
     """src/birchfield_cost.cu:83-139 (the CUDA variant: zero-padded scanlines).
 
     Cells with d > x, which the reference leaves uninitialized, are +inf here
-    (matching the TPU implementation's documented deviation).
+    (matching the JAX implementation's documented deviation).
     """
     height, width = left.shape
     K = kernel_size

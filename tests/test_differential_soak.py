@@ -1,14 +1,17 @@
-"""Seeded differential soak: oracle -> XLA -> Pallas across random configs.
+"""Seeded differential soak: oracle -> XLA -> kernel model across random
+configs.
 
-The chain numpy-oracle == XLA formulation == Pallas kernel is the
+The chain numpy-oracle == XLA formulation == SGM kernel model is the
 load-bearing correctness argument of this build (it substitutes for the
 reference's real-teddy fixtures, which need network): random geometries,
 window sizes and SGM penalties at toy scale against the per-pixel oracles;
 the full reference dtype matrix (uint8/int16 inputs x int32/float32 cost,
 src/type_dispatch.hpp:38-110) on the cost+reduce chain; and a
-production-shape (teddy-class) XLA == Pallas run, where the naive oracles
-are too slow but the XLA formulations are already oracle-anchored at toy
-scale.
+production-shape (teddy-class) XLA == kernel model run, where the naive
+oracles are too slow but the XLA formulations are already oracle-anchored
+at toy scale.  (The kernel model is tests/sgm_kernel_model.py: the Hopper
+SGM kernel's algorithm in numpy; the kernel itself meets the XLA scans on
+the card in tests/test_gpu_hardware.py.)
 
 A 40-trial unseeded version of the float chain ran clean during
 development; the seeded set guards the same surface in CI time.
@@ -20,9 +23,8 @@ import pytest
 from stereomatch_tpu.ops.aggregation import semiglobal_aggregate
 from stereomatch_tpu.ops.cost import birchfield_cost_volume, ssd_cost_volume
 from stereomatch_tpu.ops.disparity import dynamic_programming, winner_takes_all
-from stereomatch_tpu.ops.dp_pallas import dynamic_programming_pallas
-from stereomatch_tpu.ops.sgm_pallas import semiglobal_aggregate_pallas
 
+from . import sgm_kernel_model as model
 from .oracles import (birchfield_oracle, dynamic_programming_oracle,
                       sgm_oracle, ssd_oracle, wta_oracle)
 
@@ -53,18 +55,13 @@ def test_differential_chain(seed):
     agg_o = sgm_oracle(ref_vol.astype(np.float32), left, p1, p2)
     agg_x = np.asarray(semiglobal_aggregate(vol, left, penalty1=p1,
                                             penalty2=p2))
-    agg_p = np.asarray(semiglobal_aggregate_pallas(
-        vol, left, penalty1=p1, penalty2=p2, interpret=True))
+    agg_k = model.aggregate(vol, left, p1, p2)
     np.testing.assert_array_equal(wta_oracle(agg_o),
                                   np.asarray(winner_takes_all(agg_x)))
-    np.testing.assert_array_equal(np.asarray(winner_takes_all(agg_x)),
-                                  np.asarray(winner_takes_all(agg_p)))
+    np.testing.assert_array_equal(agg_k, agg_x)
 
     np.testing.assert_array_equal(dynamic_programming_oracle(agg_o),
                                   np.asarray(dynamic_programming(agg_x)))
-    np.testing.assert_array_equal(
-        np.asarray(dynamic_programming(agg_x)),
-        np.asarray(dynamic_programming_pallas(agg_x, interpret=True)))
 
     bvol = np.asarray(birchfield_cost_volume(left, right,
                                              max_disparity=max_disp))
@@ -118,16 +115,10 @@ def test_integer_chain(image_dtype, cost_dtype, seed):
         np.asarray(dynamic_programming(vol.astype(np.float32))))
 
 
-def test_teddy_class_xla_pallas_parity():
-    """Production-shape (128x160, D=64) XLA == Pallas differential run.
-
-    The per-pixel oracles are too slow here; the XLA formulations carry
-    their toy-scale oracle anchoring to this shape, and the Pallas kernels
-    must match them: identical WTA argmins, identical DP traces, and
-    finite aggregation costs within float tolerance.  This shape drives
-    multi-row grid blocks in the Pallas sweeps (rows_per_step > 1), which
-    toy shapes never reach.
-    """
+def test_teddy_class_xla_kernel_model_parity():
+    """Production-shape (128x160, D=64) XLA == kernel model differential
+    run: bit-equal aggregation (hence identical WTA argmins), and the DP
+    trace over it is oracle-anchored at toy scale above."""
     rng = np.random.default_rng(1234)
     height, width, max_disp = 128, 160, 64
     left = rng.random((height, width), np.float32)
@@ -136,17 +127,10 @@ def test_teddy_class_xla_pallas_parity():
     vol = np.asarray(ssd_cost_volume(left, right, max_disparity=max_disp,
                                      kernel_size=5))
     agg_x = np.asarray(semiglobal_aggregate(vol, left))
-    agg_p = np.asarray(semiglobal_aggregate_pallas(vol, left,
-                                                   interpret=True))
-    finite = np.isfinite(agg_x)
-    assert np.array_equal(finite, np.isfinite(agg_p))
-    np.testing.assert_allclose(agg_p[finite], agg_x[finite],
-                               rtol=1e-5, atol=1e-4)
+    agg_k = model.aggregate(vol, left)
+    np.testing.assert_array_equal(agg_k, agg_x)
     np.testing.assert_array_equal(np.asarray(winner_takes_all(agg_x)),
-                                  np.asarray(winner_takes_all(agg_p)))
-    np.testing.assert_array_equal(
-        np.asarray(dynamic_programming(agg_x)),
-        np.asarray(dynamic_programming_pallas(agg_x, interpret=True)))
+                                  np.asarray(winner_takes_all(agg_k)))
 
 
 def test_teddy_class_integer_cost_wta():
@@ -198,13 +182,12 @@ def test_cvf_differential(seed):
 
 
 @pytest.mark.parametrize("seed", range(8))
-def test_fused_cvf_layouts_differential(seed):
-    """Round-5 fused-kernel layout soak: across random geometries,
-    radii and wedge offsets, the ring, prepadded-refs and raw-volume
-    layouts must agree bit-for-bit with each other (identical
-    arithmetic) and track the XLA wedge path (association-level)."""
-    from stereomatch_tpu.ops.cvf import _filter_body_wedge
-    from stereomatch_tpu.ops.cvf_pallas import guided_filter_wedge_pallas
+def test_cvf_wedge_differential(seed):
+    """Wedge-structured CVF (the prefix-plane fast path create_pipeline
+    takes) vs the direct windowed oracle across random geometries, radii
+    and wedge offsets — same masked means, different association."""
+    from stereomatch_tpu.ops.cvf import guided_filter_aggregate
+    from .oracles import guided_filter_oracle
 
     rng = np.random.default_rng(1000 + seed)
     height = int(rng.integers(10, 40))
@@ -218,20 +201,9 @@ def test_fused_cvf_layouts_differential(seed):
     vol[:, x < d + off] = np.inf
     guide = rng.random((height, width)).astype(np.float32)
 
-    outs = {}
-    for name, kw in (("ring", dict(volume_ring=True)),
-                     ("prepad", dict(volume_ring=False, raw_volume=False)),
-                     ("raw", dict(volume_ring=False, raw_volume=True))):
-        outs[name] = np.asarray(guided_filter_wedge_pallas(
-            vol, guide, radius=radius, wedge_offset=off, interpret=True,
-            **kw))
-    np.testing.assert_array_equal(outs["ring"], outs["prepad"])
-    np.testing.assert_array_equal(outs["prepad"], outs["raw"])
-    import jax.numpy as jnp
-    ref = np.asarray(_filter_body_wedge(jnp.asarray(vol),
-                                        jnp.asarray(guide),
-                                        radius, 1e-4, off))
-    got = outs["raw"]
+    got = np.asarray(guided_filter_aggregate(vol, guide, radius=radius,
+                                             wedge_offset=off))
+    ref = guided_filter_oracle(vol, guide, radius, 1e-4)
     assert np.array_equal(np.isinf(got), np.isinf(ref))
     m = np.isfinite(ref)
-    np.testing.assert_allclose(got[m], ref[m], rtol=2e-4, atol=2e-5)
+    np.testing.assert_allclose(got[m], ref[m], rtol=5e-4, atol=5e-5)

@@ -33,7 +33,7 @@ def test_wta_tie_breaks_to_lower_disparity():
 
 def test_wta_no_power_of_two_constraint():
     """The CUDA tree reduction required pow-2 D
-    (stereomatch/disparity_reduce.py:40-43); the TPU argmin does not."""
+    (stereomatch/disparity_reduce.py:40-43); jnp.argmin does not."""
     vol = np.random.default_rng(1).random((5, 7, 13)).astype(np.float32)
     np.testing.assert_array_equal(np.asarray(winner_takes_all(vol)),
                                   wta_oracle(vol))

@@ -8,8 +8,9 @@ test_differential_soak).  Any semantic drift in cost construction, the
 SGM recurrence, tie-breaking, or the DP trace shows up here as a
 bit-level diff — across rounds, refactors, and jax upgrades.
 
-The Pallas kernels must land on the *same* disparities (cost sums differ
-only in the last ulp, and WTA/DP consume distinct values).
+The Hopper SGM kernel must land on the *same* disparities: its numpy
+model (tests/sgm_kernel_model.py) here, the kernel itself on the card
+(tests/test_gpu_hardware.py).
 """
 
 from pathlib import Path
@@ -19,9 +20,8 @@ import numpy as np
 from stereomatch_tpu.ops.aggregation import semiglobal_aggregate
 from stereomatch_tpu.ops.cost import ssd_cost_volume
 from stereomatch_tpu.ops.disparity import dynamic_programming, winner_takes_all
-from stereomatch_tpu.ops.dp_pallas import dynamic_programming_pallas
-from stereomatch_tpu.ops.sgm_pallas import semiglobal_aggregate_pallas
 
+from . import sgm_kernel_model as model
 from .conftest import synthetic_stereo_pair
 
 GOLDEN = Path(__file__).parent / "data" / "golden_sgm_disparity.npz"
@@ -74,15 +74,12 @@ def test_golden_disparity_census():
     assert bad <= float(g["census_bad_pixel_vs_gt"]) + 1e-9
 
 
-def test_golden_disparity_pallas():
+def test_golden_disparity_kernel_model():
     g = np.load(GOLDEN)
     left, _, vol = _scene_and_aggregation(g)
-    agg = semiglobal_aggregate_pallas(vol, left,
-                                      penalty1=float(g["penalty1"]),
-                                      penalty2=float(g["penalty2"]),
-                                      interpret=True)
+    agg = model.aggregate(np.asarray(vol), left, float(g["penalty1"]),
+                          float(g["penalty2"]))
     np.testing.assert_array_equal(np.asarray(winner_takes_all(agg)),
                                   g["wta"])
-    np.testing.assert_array_equal(
-        np.asarray(dynamic_programming_pallas(agg, interpret=True)),
-        g["dp"])
+    np.testing.assert_array_equal(np.asarray(dynamic_programming(agg)),
+                                  g["dp"])

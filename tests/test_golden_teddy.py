@@ -1,25 +1,25 @@
-"""Production-geometry golden anchor: teddy-scale disparities, all backends.
+"""Production-geometry golden anchor: teddy-scale disparities.
 
 tests/data/golden_teddy_disparity.npz pins the full 450x375 / D=128
 geometry — the shape every headline benchmark runs at and the reference's
 full-resolution fixture scale (/root/reference/tests/conftest.py:58-78) —
-where golden_sgm_disparity.npz pins only a 96x128 toy.  Five execution
-paths must land on the committed disparities at the bit level:
+where golden_sgm_disparity.npz pins only a 96x128 toy.  Execution paths
+that must land on the committed disparities at the bit level:
 
 1. the XLA scan formulations (the semantic oracles; also the generator —
    tools/make_golden_teddy.py);
-2. the full-width Pallas sweep kernels (interpret mode);
-3. the W-on-grid Pallas mode (chunked blocks + full-width resident carry,
-   the HD kernel) — at W=448, the nearest wgrid-legal width (450 has no
-   8-aligned power-of-two chunking), with its own committed array;
+2. the Hopper SGM kernel's algorithm, through its numpy model
+   (tests/sgm_kernel_model.py; the kernel itself is checked against the
+   same file on the card, tests/test_gpu_hardware.py);
+3. a 448-wide crop, with its own committed array;
 4. the bfloat16 storage path (volume + aggregation in bf16, f32
    recurrences);
 5. the sharded exact mode on a 5-way row-tile CPU mesh (375 = 5 x 75),
    cross-rank SGM carry hand-off included.
 
 These are cross-round regression pins: any drift in cost construction,
-the SGM recurrence/normalization, tie-breaking, chunk boundary handling,
-or the sharded hand-off shows up as a bit-level diff here.
+the SGM recurrence/normalization, tie-breaking, or the sharded hand-off
+shows up as a bit-level diff here.
 """
 
 from pathlib import Path
@@ -34,9 +34,8 @@ from stereomatch_tpu.ops.aggregation import semiglobal_aggregate
 from stereomatch_tpu.ops.cost import ssd_cost_volume
 from stereomatch_tpu.ops.disparity import (dynamic_programming,
                                            winner_takes_all)
-from stereomatch_tpu.ops.dp_pallas import dynamic_programming_pallas
-from stereomatch_tpu.ops.sgm_pallas import semiglobal_aggregate_pallas
 
+from . import sgm_kernel_model as model
 from .conftest import synthetic_stereo_pair
 
 GOLDEN = Path(__file__).parent / "data" / "golden_teddy_disparity.npz"
@@ -82,81 +81,44 @@ def test_golden_teddy_xla(golden, scene):
     assert bad < 0.06
 
 
-def test_golden_teddy_pallas_fullwidth(golden, scene):
-    """Full-width Pallas sweeps: last-ulp SGM vs the oracle and the exact
-    committed WTA/DP disparities at production geometry."""
+def test_golden_teddy_kernel_model(golden, scene):
+    """The SGM kernel's algorithm at production geometry: bit-equal SGM
+    volume to the oracle and the exact committed WTA/DP disparities."""
     left, right, _ = scene
-    vol = _volume(golden, left, right)
-    agg = semiglobal_aggregate_pallas(vol, left,
-                                      penalty1=float(golden["penalty1"]),
-                                      penalty2=float(golden["penalty2"]),
-                                      interpret=True)
-    ref = _aggregate_xla(golden, vol, left)
-    ref, out = np.asarray(ref), np.asarray(agg)
-    finite = np.isfinite(ref)
-    assert np.array_equal(finite, np.isfinite(out))
-    np.testing.assert_allclose(out[finite], ref[finite], rtol=2e-6,
-                               atol=1e-5)
+    vol = np.asarray(_volume(golden, left, right))
+    agg = model.aggregate(vol, left, float(golden["penalty1"]),
+                          float(golden["penalty2"]))
+    np.testing.assert_array_equal(
+        agg, np.asarray(_aggregate_xla(golden, vol, left)))
     np.testing.assert_array_equal(np.asarray(winner_takes_all(agg)),
                                   golden["wta"])
-    np.testing.assert_array_equal(
-        np.asarray(dynamic_programming_pallas(agg, interpret=True)),
-        golden["dp"])
+    np.testing.assert_array_equal(np.asarray(dynamic_programming(agg)),
+                                  golden["dp"])
 
 
-def test_golden_teddy_wgrid(golden, monkeypatch):
-    """The W-on-grid (HD) kernel at W=448: bit-identical aggregation to
-    the full-width kernel and the committed 448-wide WTA."""
-    from stereomatch_tpu.ops import sgm_pallas
-
+def test_golden_teddy_448_wide(golden):
+    """The 448-wide crop of the scene lands on its committed WTA."""
     g = golden
     w = int(g["wgrid_width"])
     left, right, _ = synthetic_stereo_pair(int(g["height"]), int(g["width"]),
                                            int(g["max_disparity"]),
                                            seed=int(g["seed"]))
     left, right = left[:, :w], right[:, :w]
-    vol = _volume(g, left, right)
-    # horizontal="transposed" on both sides: the VMEM-budget monkeypatch
-    # below would otherwise flip the horizontal mode between ref and out,
-    # and this test pins the ROW kernels' W-on-grid chunking.
-    ref = np.asarray(semiglobal_aggregate_pallas(
-        vol, left, penalty1=float(g["penalty1"]),
-        penalty2=float(g["penalty2"]), interpret=True,
-        horizontal="transposed"))
-
-    row_bytes = sgm_pallas._row_vmem_bytes(w, int(g["max_disparity"]))
-    monkeypatch.setattr(sgm_pallas, "_VMEM_BUDGET_BYTES", 0)
-    monkeypatch.setattr(sgm_pallas, "_WGRID_BUDGET_BYTES",
-                        3 * row_bytes + 10 * (row_bytes // 2))
-    assert sgm_pallas._pick_wgrid_chunks(w, int(g["max_disparity"]), 3) == 2
-    out = semiglobal_aggregate_pallas.__wrapped__(
-        vol, left, penalty1=float(g["penalty1"]),
-        penalty2=float(g["penalty2"]), interpret=True,
-        horizontal="transposed")
-    out = np.asarray(out)
-    np.testing.assert_array_equal(out, ref)
-    np.testing.assert_array_equal(
-        np.asarray(winner_takes_all(jnp.asarray(out))), g["wta_448"])
+    agg = _aggregate_xla(g, _volume(g, left, right), left)
+    np.testing.assert_array_equal(np.asarray(winner_takes_all(agg)),
+                                  g["wta_448"])
 
 
 def test_golden_teddy_bf16(golden, scene):
-    """bf16 storage path: the XLA scan and the Pallas kernels narrow to
-    bf16 at different points (per-traversal vs per-pass accumulation), so
-    each carries its own committed pin; both must also stay within a
-    fraction of a percent of the f32 disparities."""
+    """bf16 storage path: the XLA scan's committed pin, within a fraction
+    of a percent of the f32 disparities.  (The kernel narrows once, after
+    the f32 accumulation of all eight traversals, like the XLA scan.)"""
     left, right, _ = scene
     vol16 = _volume(golden, left, right, dtype=jnp.bfloat16)
     agg_x = _aggregate_xla(golden, vol16, left)
     wta_x = np.asarray(winner_takes_all(agg_x))
     np.testing.assert_array_equal(wta_x, golden["wta_bf16"])
-    agg_p = semiglobal_aggregate_pallas(vol16, left,
-                                        penalty1=float(golden["penalty1"]),
-                                        penalty2=float(golden["penalty2"]),
-                                        interpret=True)
-    wta_p = np.asarray(winner_takes_all(agg_p))
-    np.testing.assert_array_equal(wta_p, golden["wta_bf16_pallas"])
     assert np.mean(wta_x != golden["wta"]) < 0.005
-    assert np.mean(wta_p != golden["wta"]) < 0.005
 
 
 def test_golden_teddy_sharded_exact(golden, scene):

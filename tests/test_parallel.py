@@ -67,9 +67,9 @@ def test_sharded_sgm_wta_matches_single_chip(pair, mesh, sgm_mode):
 
 
 def test_exact_schedule_selection_and_parity(pair, mesh):
-    """Round 5: the ICI model picks the exact hand-off schedule by
-    (tiles, batch) — naive at small local batches (where round 4's
-    unconditional wavefront measured SLOWER, exact_pipeline_ab_r4), the
+    """The interconnect model picks the exact hand-off schedule by
+    (tiles, batch) — naive at small local batches (where an
+    unconditional wavefront measured slower on the CPU mesh), the
     wavefront once the frame pipeline fills — and both schedules (and
     auto) produce identical disparities."""
     from stereomatch_tpu.parallel.ici_model import select_exact_schedule
@@ -224,64 +224,48 @@ def test_single_device_mesh(pair):
 
 
 @pytest.mark.parametrize("reducer", ["wta", "dynamic_programming"])
-def test_pallas_backend_sharded(pair, mesh, reducer):
-    """Sharded pipeline with Pallas kernels (interpret mode): overlap
+def test_cuda_branch_sharded(pair, mesh, reducer, monkeypatch):
+    """The sharded pipeline's kernel branch (backend="cuda": the kernel's
+    in-place horizontal sweeps and its carry contract per tile), run on
+    the CPU through the kernel's sweep contract on the XLA scan: overlap
     spanning the tile height reproduces the single-chip result exactly."""
+    from .sgm_kernel_model import substitute_kernel
+    substitute_kernel(monkeypatch)
     left, right = pair
-    red = (WinnerTakesAll() if reducer == "wta"
-           else DynamicProgramming(backend="xla"))
+    red = (WinnerTakesAll() if reducer == "wta" else DynamicProgramming())
     ref = _reference(left, right, True, red)
     pipe = ShardedPipeline(mesh, D, kernel_size=3, aggregation="sgm",
                            reducer=reducer, sgm_mode="overlap",
-                           overlap=left.shape[0], backend="pallas",
-                           interpret=True)
+                           overlap=left.shape[0], backend="cuda")
     out = np.asarray(pipe.estimate(np.stack([left] * 2),
                                    np.stack([right] * 2)))
     np.testing.assert_array_equal(out[0], ref)
 
 
-def test_pallas_backend_exact_handoff(pair, mesh):
-    """Exact carry hand-off on the Pallas path bit-matches the single-chip
-    Pallas aggregation regardless of tiling."""
-    from stereomatch_tpu.ops.sgm_pallas import semiglobal_aggregate_pallas
+@pytest.mark.parametrize("schedule", ["wavefront", "naive"])
+def test_cuda_branch_exact_handoff(pair, mesh, schedule, monkeypatch):
+    """Exact carry hand-off on the kernel branch bit-matches the
+    single-chip aggregation regardless of tiling and fill schedule."""
+    from .sgm_kernel_model import substitute_kernel
+    substitute_kernel(monkeypatch)
     left, right = pair
-    vol = SSD(D, kernel_size=3)(left, right)
-    agg = semiglobal_aggregate_pallas(vol, left, interpret=True)
-    ref = np.asarray(WinnerTakesAll()(agg))
+    ref = _reference(left, right, True, WinnerTakesAll())
     pipe = ShardedPipeline(mesh, D, kernel_size=3, aggregation="sgm",
                            reducer="wta", sgm_mode="exact",
-                           backend="pallas", interpret=True)
+                           sgm_schedule=schedule, backend="cuda")
     out = np.asarray(pipe.estimate(np.stack([left] * 2),
                                    np.stack([right] * 2)))
     np.testing.assert_array_equal(out[0], ref)
 
 
-def test_pallas_exact_handoff_wgrid_mode(pair, mesh, monkeypatch):
-    """Exact hand-off with the W-on-grid chunk kernel (the HD VMEM mode)
-    forced at toy shape: still bit-matches single-chip Pallas."""
-    from stereomatch_tpu.ops import sgm_pallas
-    from stereomatch_tpu.ops.sgm_pallas import semiglobal_aggregate_pallas
-    left, right = pair
-    vol = SSD(D, kernel_size=3)(left, right)
-    agg = semiglobal_aggregate_pallas(vol, left, interpret=True)
-    ref = np.asarray(WinnerTakesAll()(agg))
-    monkeypatch.setattr(sgm_pallas, "_VMEM_BUDGET_BYTES", 0)
-    assert not sgm_pallas._chunk_fits_full_width(left.shape[1], D, 3)
-    assert sgm_pallas._pick_wgrid_chunks(left.shape[1], D, 3) == 2
-    pipe = ShardedPipeline(mesh, D, kernel_size=3, aggregation="sgm",
-                           reducer="wta", sgm_mode="exact",
-                           backend="pallas", interpret=True)
-    out = np.asarray(pipe.estimate(np.stack([left] * 2),
-                                   np.stack([right] * 2)))
-    np.testing.assert_array_equal(out[0], ref)
-
-
-def test_pallas_backend_small_overlap(pair, mesh):
+def test_cuda_branch_small_overlap(pair, mesh, monkeypatch):
+    from .sgm_kernel_model import substitute_kernel
+    substitute_kernel(monkeypatch)
     left, right = pair
     ref = _reference(left, right, True, WinnerTakesAll())
     pipe = ShardedPipeline(mesh, D, kernel_size=3, aggregation="sgm",
                            reducer="wta", sgm_mode="overlap", overlap=4,
-                           backend="pallas", interpret=True)
+                           backend="cuda")
     out = np.asarray(pipe.estimate(np.stack([left] * 2),
                                    np.stack([right] * 2)))
     assert np.mean(out[0] != ref) < 0.05
@@ -358,7 +342,7 @@ def test_tiled2d_dp_exact_handoff(pair, grid):
     left, right = pair
     vol = SSD(D, kernel_size=3)(left, right)
     agg = Semiglobal(backend="xla")(vol, left)
-    ref = np.asarray(DynamicProgramming(backend="xla")(agg))
+    ref = np.asarray(DynamicProgramming()(agg))
     nb, nt, nw = grid
     mesh2 = make_mesh_2d(n_batch=nb, n_tile=nt, n_tile_w=nw)
     fn = make_tiled2d_estimate(mesh2, max_disparity=D, kernel_size=3,
@@ -368,17 +352,19 @@ def test_tiled2d_dp_exact_handoff(pair, grid):
     np.testing.assert_array_equal(out[0], ref)
 
 
-def test_tiled2d_pallas_backend(pair):
-    """2-D tiling with the Pallas aggregation kernels (interpret mode)."""
+def test_tiled2d_cuda_branch(pair, monkeypatch):
+    """2-D tiling with the kernel branch of the aggregation (run on the
+    CPU through the kernel's sweep contract on the XLA scan)."""
     from stereomatch_tpu.parallel import make_mesh_2d, make_tiled2d_estimate
+    from .sgm_kernel_model import substitute_kernel
+    substitute_kernel(monkeypatch)
     left, right = pair
     vol = SSD(D, kernel_size=3)(left, right)
     agg = Semiglobal(backend="xla")(vol, left)
     ref = np.asarray(WinnerTakesAll()(agg))
     mesh2 = make_mesh_2d(n_batch=2, n_tile=2, n_tile_w=2)
     fn = make_tiled2d_estimate(mesh2, max_disparity=D, kernel_size=3,
-                               overlap=max(left.shape), backend="pallas",
-                               interpret=True)
+                               overlap=max(left.shape), backend="cuda")
     out = np.asarray(fn(np.stack([left] * 2), np.stack([right] * 2)))
     np.testing.assert_array_equal(out[0], ref)
 
@@ -423,8 +409,8 @@ def test_sharded_ncc(pair, mesh):
     """Sharded ZNCC is BIT-EQUAL to the single-chip volume (round 5).
 
     The padded body now runs the single-chip prefix-plane formulation
-    on the haloed tile with the global centering means and the global
-    MXU lowering decision threaded in, so the volumes — not just the
+    on the haloed tile with the global centering means threaded in, so
+    the volumes — not just the
     WTA picks — must match exactly (the round-3/4 contract allowed
     ~1e-5 divergence between the two formulations)."""
     import functools
@@ -753,15 +739,19 @@ def test_tiled2d_census_multiword_window(pair):
 
 
 def test_sgm_mode_auto_and_model_selection(pair, mesh):
-    """sgm_mode='auto' resolves through the ICI model (round 4): the
-    model prefers bit-exact 'exact' within 5% efficiency, and the
-    frame-pipelined hand-off makes batch size enter the prediction
-    (more frames per chip amortize the serial chain)."""
+    """sgm_mode='auto' resolves through the interconnect model: the model
+    prefers bit-exact 'exact' within 5% efficiency, and the
+    frame-pipelined hand-off makes batch size enter the prediction (more
+    frames per chip amortize the serial chain).  Rates come from the
+    device table — passed explicitly here (the H100's), and an error for
+    a device with no published figures, such as this CPU mesh."""
     from stereomatch_tpu.parallel.ici_model import select_sgm_mode
+    from stereomatch_tpu.utils.devices import UnknownDeviceError
+    rates = dict(link_gbps=450.0, hbm_gbps=3350.0)
     mode_small, info_small = select_sgm_mode(height=64, width=96, disp=32,
-                                             tiles=4, batch=1)
+                                             tiles=4, batch=1, **rates)
     mode_big, info_big = select_sgm_mode(height=4096, width=512, disp=64,
-                                         tiles=4, batch=8)
+                                         tiles=4, batch=8, **rates)
     # Tall images with few tiles and deep batches favor exact (carry is
     # one [3, W, D] slab vs H/T rows of compute); tiny tiles favor
     # overlap.  The directions, not the absolute numbers, are the pin.
@@ -770,18 +760,22 @@ def test_sgm_mode_auto_and_model_selection(pair, mesh):
             >= info_small["exact_efficiency"])
     # Deeper batches never make exact look worse.
     _, info_b1 = select_sgm_mode(height=375, width=450, disp=128,
-                                 tiles=8, batch=1)
+                                 tiles=8, batch=1, **rates)
     _, info_b8 = select_sgm_mode(height=375, width=450, disp=128,
-                                 tiles=8, batch=8)
+                                 tiles=8, batch=8, **rates)
     assert (info_b8["exact_efficiency"]
             >= info_b1["exact_efficiency"])
 
-    # The auto pipeline builds and runs on the mesh.
+    # The auto pipeline asks the mesh devices for their rates.
     left, right = pair
     pipe = ShardedPipeline(mesh, D, kernel_size=3, aggregation="sgm",
                            reducer="wta", sgm_mode="auto")
-    out = np.asarray(pipe.estimate(np.stack([left] * 2),
-                                   np.stack([right] * 2)))
+    with pytest.raises(UnknownDeviceError):
+        pipe.estimate(np.stack([left] * 2), np.stack([right] * 2))
+    out = np.asarray(ShardedPipeline(
+        mesh, D, kernel_size=3, aggregation="sgm", reducer="wta",
+        sgm_mode=mode_small).estimate(np.stack([left] * 2),
+                                      np.stack([right] * 2)))
     assert out.shape == (2,) + left.shape
     with pytest.raises(ValueError, match="unknown sgm_mode"):
         ShardedPipeline(mesh, D, aggregation="sgm", sgm_mode="exactt")

@@ -85,14 +85,14 @@ def test_create_pipeline_registry():
 
 
 def test_create_pipeline_plumbs_penalties_and_backend():
-    """SGM penalties and the kernel backend must reach the stage objects
-    from the factory (VERDICT round-1 weak #7)."""
+    """SGM penalties and the SGM backend must reach the stage objects
+    from the factory (the DP reducer has one implementation)."""
     p = create_pipeline("ssd", "dyn", "sgm", max_disparity=8,
                         penalty1=0.4, penalty2=0.9, backend="xla")
     assert p.aggregation.penalty1 == 0.4
     assert p.aggregation.penalty2 == 0.9
     assert p.aggregation.backend == "xla"
-    assert p.disparity_reduce.backend == "xla"
+    assert not hasattr(p.disparity_reduce, "backend")
 
 
 def test_create_pipeline_volume_dtype(stereo_pair_small):

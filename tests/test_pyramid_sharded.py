@@ -50,12 +50,16 @@ def test_exact_mode_matches_single_chip(pair, mesh, levels):
     np.testing.assert_array_equal(_run(fn, left, right), ref)
 
 
-def test_pallas_interpret_matches_single_chip(pair, mesh):
+def test_cuda_branch_matches_single_chip(pair, mesh, monkeypatch):
+    """The coarse SGM's kernel branch (backend="cuda"), run on the CPU
+    through the kernel's sweep contract on the XLA scan."""
+    from .sgm_kernel_model import substitute_kernel
+    substitute_kernel(monkeypatch)
     left, right = pair
     ref = np.asarray(PyramidPipeline(D, levels=1,
                                      backend="xla").estimate(left, right))
     fn = make_pyramid_sharded_estimate(mesh, max_disparity=D, levels=1,
-                                       backend="pallas", interpret=True)
+                                       backend="cuda")
     np.testing.assert_array_equal(_run(fn, left, right), ref)
 
 

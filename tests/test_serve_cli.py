@@ -691,7 +691,7 @@ def test_adaptive_batch_degrades_and_restores():
 def test_adaptive_batch_restore_clamps_non_pow2_cap():
     """A non-power-of-two --batch (6) degrades 6 -> 3 -> 1; the restore
     path must double back up to EXACTLY the configured cap, never past
-    it (ADVICE r4 medium: unclamped doubling reached 8 > 6)."""
+    it (unclamped doubling would reach 8 > 6)."""
     from stereomatch_tpu.cli.serve import build_parser, _Batcher
 
     args = build_parser().parse_args(
@@ -720,7 +720,8 @@ def test_adaptive_batch_restore_clamps_non_pow2_cap():
 
 def test_dtype_auto_resolves_from_warmup_geometry():
     """--dtype auto picks the measured f32/bf16 crossover from the
-    warmup geometry and aggregation (round 5; requires --warmup)."""
+    warmup geometry (requires --warmup); small frames stay float32 for
+    SGM and CVF alike (cli_common.recommended_dtype)."""
     from stereomatch_tpu.cli.serve import build_parser, make_server
 
     args = build_parser().parse_args(
@@ -737,7 +738,7 @@ def test_dtype_auto_resolves_from_warmup_geometry():
          "-am", "cvf", "--warmup", "16x24"])
     srv = make_server(args)
     try:
-        assert srv.stm_state.args.dtype == "bfloat16"     # cvf: always
+        assert srv.stm_state.args.dtype == "float32"      # cvf, small
     finally:
         srv.server_close()
 

@@ -143,10 +143,9 @@ def test_stream_fgs_matches_pipeline():
 
 
 def test_stream_depth_and_narrowed_fetch(y4m_stream):
-    """Round 4: run() narrows int32 disparities to uint8 for the fetch
-    (the relay fetch is 99% of video wall clock — benchmarks/video.py
-    stage split) and widens back on the host; deeper in-flight windows
-    yield identical frames in order."""
+    """run() narrows int32 disparities to uint8 for the fetch (4x fewer
+    device->host bytes) and widens back on the host; deeper in-flight
+    windows yield identical frames in order."""
     path, left, right, _ = y4m_stream
     _, ref = _run(path, batch=4, aggregation="sgm", reducer="wta")
     for depth in (1, 3):

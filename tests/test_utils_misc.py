@@ -1,6 +1,8 @@
 """Direct unit coverage for small shared contracts that the integration
 tests only exercise indirectly."""
 
+from pathlib import Path
+
 import numpy as np
 import pytest
 
@@ -9,15 +11,66 @@ import jax.numpy as jnp
 
 
 def test_resolve_backend_contract():
-    """auto -> pallas ONLY on real TPU backends (round-1 advisor finding:
-    any non-CPU accelerator used to select the TPU-only kernels)."""
+    """auto -> the Hopper kernel ONLY where it can run (the CPU here);
+    an explicit kernel request on the CPU raises instead of falling
+    back; unknown names raise."""
     from stereomatch_tpu.utils.backend import resolve_backend
     assert resolve_backend("xla") == "xla"
-    assert resolve_backend("pallas") == "pallas"
-    expected = "pallas" if jax.default_backend() == "tpu" else "xla"
-    assert resolve_backend("auto") == expected    # CPU in CI
-    with pytest.raises(ValueError, match="unknown backend"):
+    assert resolve_backend("auto") == "xla"          # CPU in CI
+    with pytest.raises(RuntimeError, match="Hopper"):
         resolve_backend("cuda")
+    with pytest.raises(ValueError, match="unknown backend"):
+        resolve_backend("pallas")
+
+
+def test_device_table_knows_the_h100():
+    from stereomatch_tpu.utils.devices import device_spec
+    spec = device_spec("NVIDIA H100 80GB HBM3")
+    assert spec.hbm_bytes_per_s == 3.35e12
+    assert spec.link_bytes_per_s == 450e9
+    assert "data sheet" in spec.source
+
+
+def test_device_table_unknown_kind_raises():
+    from stereomatch_tpu.utils.devices import UnknownDeviceError, device_spec
+    with pytest.raises(UnknownDeviceError, match="no published figures"):
+        device_spec("cpu")
+    with pytest.raises(UnknownDeviceError):
+        device_spec()                                 # the CPU device here
+
+
+def test_interconnect_model_rates():
+    """The SGM mode model takes the device table's rates, or explicit
+    ones (how CPU callers use it); a device without figures raises."""
+    from stereomatch_tpu.parallel.ici_model import select_sgm_mode
+    from stereomatch_tpu.utils.devices import UnknownDeviceError
+    geo = dict(height=376, width=450, disp=128, tiles=4, batch=1)
+    table = select_sgm_mode(device_kind="NVIDIA H100 80GB HBM3", **geo)
+    explicit = select_sgm_mode(link_gbps=450.0, hbm_gbps=3350.0, **geo)
+    assert table == explicit
+    with pytest.raises(UnknownDeviceError):
+        select_sgm_mode(**geo)
+
+
+def test_compile_cache_honours_environment(monkeypatch):
+    """With JAX_COMPILATION_CACHE_DIR set, the directory is JAX's to read
+    and none is set in code; unset, the checkout's .jax_cache/ is used."""
+    from stereomatch_tpu.utils import compile_cache
+    before = jax.config.jax_compilation_cache_dir
+    min_time = jax.config.jax_persistent_cache_min_compile_time_secs
+    try:
+        monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", "/elsewhere/cache")
+        assert str(compile_cache.enable_compile_cache()) == "/elsewhere/cache"
+        assert jax.config.jax_compilation_cache_dir == before
+        monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR")
+        path = compile_cache.enable_compile_cache()
+        assert path == compile_cache.CHECKOUT_CACHE
+        assert path.parent == Path(__file__).resolve().parent.parent
+        assert jax.config.jax_compilation_cache_dir == str(path)
+    finally:
+        jax.config.update("jax_compilation_cache_dir", before)
+        jax.config.update("jax_persistent_cache_min_compile_time_secs",
+                          min_time)
 
 
 def test_out_of_image_mask_ranks():
@@ -58,13 +111,13 @@ def test_out_of_image_mask_ranks():
 
 
 def test_recommended_dtype_geometry_aware():
-    """Round 5 (VERDICT r4 weak #8): the dtype recommendation follows
-    the measurements — f32 for SGM at teddy-class frames, bf16 at
-    HD-class frames and for CVF aggregation at every size."""
+    """The dtype recommendation follows the H100 measurements — f32 at
+    teddy-class frames, bf16 at HD-class frames, for SGM and CVF alike."""
     from stereomatch_tpu.cli_common import recommended_dtype
 
     assert recommended_dtype(375, 450) == "float32"          # teddy
     assert recommended_dtype(256, 512) == "float32"          # half-res
     assert recommended_dtype(1024, 1280) == "bfloat16"       # HD-class
     assert recommended_dtype(720, 1280) == "bfloat16"        # 720p
-    assert recommended_dtype(375, 450, aggregation="cvf") == "bfloat16"
+    assert recommended_dtype(375, 450, aggregation="cvf") == "float32"
+    assert recommended_dtype(1024, 1280, aggregation="cvf") == "bfloat16"

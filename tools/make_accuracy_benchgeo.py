@@ -2,10 +2,8 @@
 """Generate benchmarks/accuracy_benchgeo_r5.json: the accuracy table at
 the BENCHMARK geometries.
 
-VERDICT r4 next #4/#8: every accuracy table lived at 96x128/D=32 while
-every perf claim lived at teddy 450x375/D=128 or HD — so "fastest
-full-quality config" was an accuracy claim with no evidence at the
-geometry it was made for.  This runs the textured+occluded synthetic
+The small accuracy tables live at 96x128/D=32 while the benchmarks run
+at teddy 450x375/D=128 or HD.  This runs the textured+occluded synthetic
 scenes through stm-eval at:
 
 * teddy geometry (375x450, D=128): flat configs + CVF/WMF/FGS +
@@ -65,9 +63,9 @@ def main():
     ap.add_argument("--out", default=str(REPO / "benchmarks"
                                          / "accuracy_benchgeo_r5.json"))
     ap.add_argument("--device", default="cpu",
-                    help="jax platform for the evals (cpu keeps the TPU "
-                         "free; results are identical up to backend "
-                         "lowering ulps)")
+                    help="jax platform for the evals (cpu keeps the "
+                         "accelerator free; results are identical up to "
+                         "backend lowering ulps)")
     ap.add_argument("--teddy-scenes", type=int, default=6)
     ap.add_argument("--hd-scenes", type=int, default=2)
     ap.add_argument("--skip-hd", action="store_true")

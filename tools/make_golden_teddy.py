@@ -5,12 +5,10 @@ Teddy geometry — 450x375, D=128, k=7 (the reference's full-resolution
 fixture scale, /root/reference/tests/conftest.py:58-78) — on the fixed
 synthetic scene, computed by the XLA scan formulations (the semantic
 oracles).  tests/test_golden_teddy.py pins every execution path (XLA,
-Pallas full-width, W-on-grid, bf16, sharded-exact) to these arrays at the
-bit level across rounds.
-
-The W-on-grid kernel needs W divisible into 8-aligned power-of-two chunks,
-which 450 is not (450 = 2*3^2*5^2); its leg uses the same scene cropped to
-W=448 (its own stored array), the closest wgrid-legal width.
+the SGM kernel's model, bf16, sharded-exact) to these arrays at the bit
+level across rounds, and tests/test_gpu_hardware.py pins the Hopper
+kernel on the card.  A 448-wide crop of the scene carries its own stored
+array.
 
 Run from the repo root (CPU is forced; ~30 s):
     python tools/make_golden_teddy.py
@@ -67,17 +65,7 @@ def main():
     print(f"bf16: WTA differs from f32 on {np.mean(wta16 != wta):.4%} "
           f"of pixels")
 
-    # The Pallas bf16 path narrows to bf16 at different points than the
-    # XLA scan (per-pass accumulation vs per-traversal), so its rounding
-    # is NOT bitwise-identical to the scan's — each gets its own pin.
-    from stereomatch_tpu.ops.sgm_pallas import semiglobal_aggregate_pallas
-    agg16p = semiglobal_aggregate_pallas(vol16, left, penalty1=P1,
-                                         penalty2=P2, interpret=True)
-    wta16p = np.asarray(winner_takes_all(agg16p))
-    print(f"bf16: Pallas WTA differs from XLA-scan bf16 on "
-          f"{np.mean(wta16p != wta16):.4%} of pixels")
-
-    # W-on-grid leg geometry: the same scene cropped to 448 columns.
+    # 448-wide leg: the same scene cropped to 448 columns.
     lc, rc = left[:, :WGRID_WIDTH], right[:, :WGRID_WIDTH]
     volc = ssd_cost_volume(lc, rc, max_disparity=MAX_DISP,
                            kernel_size=KERNEL)
@@ -90,7 +78,7 @@ def main():
         height=HEIGHT, width=WIDTH, max_disparity=MAX_DISP, seed=SEED,
         kernel_size=KERNEL, penalty1=P1, penalty2=P2,
         wta=wta, dp=dp, bad_pixel_vs_gt=bad,
-        wta_bf16=wta16, wta_bf16_pallas=wta16p,
+        wta_bf16=wta16,
         wgrid_width=WGRID_WIDTH, wta_448=wta448,
     )
     print(f"wrote {OUT} ({OUT.stat().st_size / 1024:.0f} KiB)")

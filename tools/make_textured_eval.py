@@ -2,7 +2,7 @@
 """Generate benchmarks/textured_eval.json: guide-aware vs guide-blind
 ablations of CVF / WMF / FGS on both synthetic surface models.
 
-VERDICT r3 missing #1 / next #5: the round-1/2 synthetic scenes'
+The plain synthetic scenes'
 textures are smoothed noise, so the guide image carries no usable edge
 structure and guide-aware stages measured WORSE than guide-blind
 ablations — the offline evidence could not support the claims made for

@@ -2,8 +2,7 @@
 """Pyramid-at-HD knob sweep: can the coarse-level knobs close the
 +7.8 pp accuracy gap accuracy_benchgeo_r5.json measured?
 
-VERDICT r4 #8 offered two outs: close the gap with the knobs that
-worked at small scale (penalties 0.2/0.4, band radius) or publish the
+Two outs: close the gap with the knobs that worked at small scale (penalties 0.2/0.4, band radius) or publish the
 frontier.  The frontier is published; this script tries the knobs on
 the same textured HD scenes and records what each buys, appending a
 `pyramid_hd_knobs` section to benchmarks/accuracy_benchgeo_r5.json.
