@@ -6,8 +6,9 @@ throughput and scaling efficiency vs the single-device run.  With
 several hosts, launch one process per host with ``--distributed``.
 ``--force-cpu`` validates the mesh logic on an 8-device virtual CPU mesh
 (its result names the CPU as the device).  ``--model`` prints the
-interconnect model's table at the published rates of ``--device-kind``
-(utils/devices.py) or of explicit ``--link-gbps``/``--hbm-gbps``.
+interconnect model's table at the published rates of this machine's
+device (utils/devices.py), each replaced by ``--link-gbps``/``--hbm-gbps``
+where given (with both, no device is needed).
 
 Usage:
     python benchmarks/scaling.py [--force-cpu] [--distributed]
@@ -90,23 +91,20 @@ def main():
     parser.add_argument("--json", default=None)
     parser.add_argument("--model", action="store_true",
                         help="emit the analytic interconnect traffic "
-                             "model table (no devices needed) and exit")
+                             "model table and exit")
     parser.add_argument("--model-tiles", type=int, default=4)
-    parser.add_argument("--device-kind", default="NVIDIA H100 80GB HBM3",
-                        help="--model: take the rates published for this "
-                             "device kind (utils/devices.py)")
     parser.add_argument("--link-gbps", type=float, default=None)
     parser.add_argument("--hbm-gbps", type=float, default=None)
     args = parser.parse_args()
 
     if args.model:
         from stereomatch_tpu.parallel.ici_model import ici_traffic_model
-        from stereomatch_tpu.utils.devices import device_spec
-        spec = device_spec(args.device_kind)
-        link = (spec.link_bytes_per_s / 1e9 if args.link_gbps is None
-                else args.link_gbps)
-        hbm = (spec.hbm_bytes_per_s / 1e9 if args.hbm_gbps is None
-               else args.hbm_gbps)
+        link, hbm = args.link_gbps, args.hbm_gbps
+        if link is None or hbm is None:
+            from stereomatch_tpu.utils.devices import device_spec
+            spec = device_spec()
+            link = spec.link_bytes_per_s / 1e9 if link is None else link
+            hbm = spec.hbm_bytes_per_s / 1e9 if hbm is None else hbm
         rows = ici_traffic_model(height=args.height, width=args.width,
                                  disp=args.disp, tiles=args.model_tiles,
                                  overlap=args.overlap, link_gbps=link,

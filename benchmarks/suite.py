@@ -36,10 +36,12 @@ REFERENCE_MS = {
     "ssd_texture_512x256_d32": 7.29,
     "birchfield_cost_512x256_d32": 2.99,
     "sgm_450x375_d128": 6.99,
+    "sgm_xla_450x375_d128": 6.99,
     "wta_450x375_d128": None,
     "argmin_baseline_450x375_d128": None,
     "dynprog_450x375_d128": 0.708,
     "pipeline_teddy_450x375_d128": 10.0,
+    "pipeline_teddy_xla_450x375_d128": 10.0,
     "pipeline_batch4_teddy_d128": 40.0,   # 4x the single-frame estimate
 }
 
@@ -67,8 +69,16 @@ def _traffic_models():
         # ZNCC streams six stacked statistic planes through the box
         # filter and writes the volume: ~7 volume-sized transfers.
         "zncc_cost_512x256_d32": 7 * v1,
+        "ssd_cost_teddy_d128": v2,
+        # one k=7 box pass over the leading axis: read + write the volume
+        "box_sum_teddy_d128": 2 * v2,
+        "box_sum_hd_1024x1280_d256": 2 * v3,
         # SGM: read the cost volume + write the aggregated volume
         "sgm_450x375_d128": 2 * v2,
+        "sgm_xla_450x375_d128": 2 * v2,
+        # bf16 in and out: half the f32 volume each way
+        "sgm_hd_bf16_1024x1280_d256": v3,
+        "sgm_xla_hd_bf16_1024x1280_d256": v3,
         # cvf (guided cost-volume filtering): same minimum — read + write
         # the volume (the implementation's intermediate box-filter planes
         # are what %SoL charges it for, exactly like SGM's 4 passes)
@@ -83,6 +93,7 @@ def _traffic_models():
         "dynprog_450x375_d128": v2,
         # pipeline: vol write (cost) + vol read+write (SGM) + vol read (WTA)
         "pipeline_teddy_450x375_d128": 4 * v2,
+        "pipeline_teddy_xla_450x375_d128": 4 * v2,
         "pipeline_batch4_teddy_d128": 16 * v2,
         "pipeline_hd_1024x1280_d256": 4 * v3,
         # bf16 volumes: same passes at half the bytes
@@ -161,12 +172,17 @@ def build_benchmarks():
                                           census_hamming_cost_volume,
                                           sad_cost_volume, ssd_cost_volume,
                                           zncc_cost_volume)
+    from stereomatch_tpu.cli_common import create_pipeline
+    from stereomatch_tpu.ops.aggregation import semiglobal_aggregate
+    from stereomatch_tpu.ops.cost import _box_sum
     from stereomatch_tpu.ops.cvf import guided_filter_aggregate
     from stereomatch_tpu.ops.disparity import (dynamic_programming,
                                                winner_takes_all)
     from stereomatch_tpu.texture import TextureImage
     from stereomatch_tpu.utils.backend import resolve_backend, semiglobal_fn
 
+    # The SGM rows run the implementation ``backend="auto"`` picks (the
+    # Hopper kernel on an H100); the ``*_xla_*`` rows run the XLA scans.
     aggregate = semiglobal_fn(resolve_backend("auto"))
 
     rng = np.random.default_rng(0)
@@ -223,7 +239,13 @@ def build_benchmarks():
             return v + jnp.float32(1e-12) * flat[:, :, None], img
         return body, (vol2, l2)
 
+    benches["ssd_cost_teddy_d128"] = (cost_bench(
+        lambda l, r: ssd_cost_volume(l, r, max_disparity=d2,
+                                     kernel_size=7))[0], (l2, r2))
+    benches["box_sum_teddy_d128"] = vol_bench(
+        lambda v, img: _box_sum(v, 7, axes=(0,)))
     benches["sgm_450x375_d128"] = vol_bench(lambda v, img: aggregate(v, img))
+    benches["sgm_xla_450x375_d128"] = vol_bench(semiglobal_aggregate)
     # The cvf row measures the stage as the pipeline actually runs it:
     # a volume whose invalid entries are the standard +inf wedge
     # (x < d, every registry cost family) filtered through the
@@ -256,14 +278,19 @@ def build_benchmarks():
     benches["dynprog_450x375_d128"] = vol_bench(
         lambda v, img: dynamic_programming(v))
 
-    def pipe_body(carry):
-        l, r = carry
-        vol = ssd_cost_volume(l, r, max_disparity=d2, kernel_size=7)
-        agg = aggregate(vol, l)
-        disp = winner_takes_all(agg)
-        return feedback(l, disp), r
+    # The headline pipeline as users build it (bench.py's program), on
+    # the implementation "auto" picks and on the XLA scans.
+    def pipeline_bench(backend):
+        estimate = create_pipeline("ssd", "wta", "sgm", max_disparity=d2,
+                                   backend=backend).estimate_fn()
 
-    benches["pipeline_teddy_450x375_d128"] = (pipe_body, (l2, r2))
+        def body(carry):
+            l, r = carry
+            return feedback(l, estimate(l, r)), r
+        return body, (l2, r2)
+
+    benches["pipeline_teddy_450x375_d128"] = pipeline_bench("auto")
+    benches["pipeline_teddy_xla_450x375_d128"] = pipeline_bench("xla")
 
     def pipe_bf16_body(carry):
         l, r = carry
@@ -463,6 +490,24 @@ def build_benchmarks():
 
     benches["pipeline_hd_census_bf16_d256"] = (hd_census_bf16_body,
                                                (l3, r3))
+
+    def hd_vol_bench(fn, vol):
+        def body(carry):
+            v, img = carry
+            out = fn(v, img)
+            return v + (jnp.asarray(1e-12, v.dtype)
+                        * out[:, :, :1].astype(v.dtype)), img
+        return body, (vol, l3)
+
+    vol3_bf16 = jax.device_put(jnp.asarray(
+        rng.random((h3, w3, d3), np.float32), jnp.bfloat16))
+    benches["sgm_hd_bf16_1024x1280_d256"] = hd_vol_bench(aggregate,
+                                                         vol3_bf16)
+    benches["sgm_xla_hd_bf16_1024x1280_d256"] = hd_vol_bench(
+        semiglobal_aggregate, vol3_bf16)
+    benches["box_sum_hd_1024x1280_d256"] = hd_vol_bench(
+        lambda v, img: _box_sum(v, 7, axes=(0,)),
+        jax.device_put(rng.random((h3, w3, d3), np.float32)))
 
     # HD CVF rows: the production geometry of the CVF configs.  The
     # stage row holds a wedge HD volume as carry; the pipeline rows

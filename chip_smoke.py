@@ -63,18 +63,6 @@ def check(ok: bool, what: str) -> None:
         raise PhaseFailed(what)
 
 
-def card() -> str:
-    try:
-        out = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"], capture_output=True, text=True,
-            timeout=60)
-    except (OSError, subprocess.SubprocessError) as err:
-        return f"nvidia-smi unavailable ({err})"
-    return out.stdout.strip().splitlines()[0] if out.stdout.strip() else \
-        f"nvidia-smi gave nothing (exit {out.returncode})"
-
-
 # -- phases -----------------------------------------------------------------
 
 def phase_gpu_tests():
@@ -325,8 +313,10 @@ def phase_multi(ctx):
 
     from stereomatch_tpu.cli_common import create_pipeline
     from stereomatch_tpu.parallel import ShardedPipeline, make_mesh
-    from stereomatch_tpu.parallel.ici_model import select_sgm_mode
+    from stereomatch_tpu.parallel.ici_model import (ici_traffic_model,
+                                                    select_sgm_mode)
     from stereomatch_tpu.utils import benchmarking
+    from stereomatch_tpu.utils.devices import device_spec
 
     devices = jax.devices()
     check(len(devices) == 4, f"--multi needs 4 devices, found {len(devices)}")
@@ -344,6 +334,24 @@ def phase_multi(ctx):
                                  batch=1, device_kind=devices[0].device_kind)
     log(f"[multi] interconnect model picks sgm_mode={mode!r} at (batch=1, "
         f"tile=4): {info}")
+    spec = device_spec(devices[0].device_kind)
+
+    def predicted(n_batch, n_tile, kwargs):
+        rows = ici_traffic_model(
+            height=h, width=w, disp=d, tiles=n_tile, batch=n_batch,
+            overlap=kwargs.get("overlap", 64),
+            link_gbps=spec.link_bytes_per_s / 1e9,
+            hbm_gbps=spec.hbm_bytes_per_s / 1e9)
+        row = next(r for r in rows if r["config"] == "sgm_"
+                   + kwargs["sgm_mode"])
+        return row["predicted_efficiency"]
+
+    # One card on the same numpy inputs (host copy included, as below).
+    single = benchmarking.summarize_ms(benchmarking.time_calls(
+        one, *(np.asarray(a) for a in pairs[0][:2]), warmup=2,
+        repeats=10))["median_ms"]
+    log(f"[multi] one card, the same frame from the host: median step "
+        f"{single:.3f} ms on {ctx['card']}")
     full = (4 - 1) * (h // 4)               # warm-up covering every tile
     times = {}
     for label, n_batch, n_tile, kwargs in [
@@ -361,9 +369,14 @@ def phase_multi(ctx):
         step = benchmarking.summarize_ms(benchmarking.time_calls(
             pipe.estimate, left, right, warmup=2, repeats=10))
         times[label] = step["median_ms"]
+        # Scaling efficiency: this mesh's frames/s per card over one
+        # card's frames/s.
+        eff = single * n_batch / (4 * step["median_ms"])
         log(f"[multi] {label} (batch={n_batch}, tile={n_tile}) on devices "
             f"{ids}: mismatching pixels vs one card {mism}; median step "
-            f"{step['median_ms']:.3f} ms on {ctx['card']}")
+            f"{step['median_ms']:.3f} ms on {ctx['card']}; scaling "
+            f"efficiency measured {eff:.3f}, model "
+            f"{predicted(n_batch, n_tile, kwargs):.3f}")
         if label == "overlap64":
             continue                        # warm-up approximation: report
         check(max(mism) == 0, f"{label} differs from the one-card pipeline")
@@ -388,6 +401,7 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(REPO))
+    from stereomatch_tpu.utils.benchmarking import card
     ctx = {"card": card()}
     log(f"card: {ctx['card']}")
     try:

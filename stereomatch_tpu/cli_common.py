@@ -131,22 +131,3 @@ def create_pipeline(cost_method: str, disp_method: str,
 
     return Pipeline(cost, disparity, aggregation=aggregation)
 
-
-def recommended_dtype(height: int, width: int,
-                      aggregation: str = "sgm") -> str:
-    """Geometry-aware volume-dtype recommendation.
-
-    Measured end to end through ``Pipeline.compiled()`` on one NVIDIA H100
-    80GB HBM3 at a 400 W power limit (census cost, WTA):
-
-    * teddy, 375x450 D=128 (0.17 MP): SGM 2.36 ms f32 vs 2.65 ms bf16,
-      CVF 2.53 vs 2.71 — float32 is faster: the volume is small enough
-      that bf16's widen/narrow work outweighs its saved bytes;
-    * HD, 1024x1280 D=256 (1.3 MP): SGM 16.68 vs 15.79 ms, CVF 22.95 vs
-      21.00 — bfloat16 is faster.
-
-    The threshold between the classes is half a megapixel, for both
-    aggregations (``aggregation`` is accepted for the callers' sake).
-    """
-    del aggregation
-    return "bfloat16" if height * width >= 512 * 1024 else "float32"

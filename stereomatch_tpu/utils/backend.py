@@ -4,14 +4,14 @@ SGM kernel and the XLA formulation.
 SGM has two implementations with identical results: the ``lax.scan``
 formulation (ops/aggregation.py — the semantic oracle, runs anywhere) and
 the Hopper CUDA kernel (ops/sgm_cuda.cu, called through the XLA FFI; NVIDIA
-GPUs of compute capability 9.x only).  ``"auto"`` takes the kernel where
-it can run and XLA elsewhere; an explicit ``"cuda"`` on a device that
-cannot run it raises — there is no interpreted fallback.
+GPUs of compute capability 9.x only).  ``"auto"`` takes the kernel on a
+Hopper GPU and XLA elsewhere; on a Hopper GPU that cannot build the
+kernel (no nvcc) it raises rather than swap in the far slower scans, and
+an explicit ``"cuda"`` on a device that cannot run it raises — there is
+no interpreted fallback.  ``"xla"`` is the way to ask for the scans.
 """
 
 from __future__ import annotations
-
-import warnings
 
 import jax
 
@@ -20,18 +20,18 @@ BACKENDS = ("auto", "cuda", "xla")
 
 def kernel_supported(device=None) -> bool:
     """Whether ``device`` (default: JAX's first device) runs the kernel:
-    an NVIDIA GPU of compute capability 9.x, with the kernel library
-    built or a CUDA toolkit to build it (JAX's pip wheels bring CUDA
-    runtime libraries but no nvcc)."""
+    an NVIDIA GPU of compute capability 9.x.  Raises on such a GPU when
+    the kernel library is neither built nor buildable (JAX's pip wheels
+    bring CUDA runtime libraries but no nvcc)."""
     device = jax.devices()[0] if device is None else device
     capability = str(getattr(device, "compute_capability", ""))
     if device.platform != "gpu" or capability.split(".")[0] != "9":
         return False
     from ..ops.sgm_cuda import buildable
     if not buildable():
-        warnings.warn("Hopper GPU found but no nvcc (set CUDA_HOME): SGM "
-                      "runs on the XLA scans, ~25x slower", stacklevel=2)
-        return False
+        raise RuntimeError(
+            "Hopper GPU found but no nvcc to build the SGM kernel (set "
+            "CUDA_HOME); pass backend='xla' to run the XLA scans instead")
     return True
 
 
@@ -40,14 +40,17 @@ def resolve_backend(backend: str) -> str:
 
     ``"auto"`` is ``"cuda"`` on a Hopper GPU and ``"xla"`` elsewhere;
     ``"xla"`` always passes; ``"cuda"`` raises unless the default device
-    runs the kernel; anything else raises.
+    runs the kernel; anything else raises, and so does a non-``"xla"``
+    request on a Hopper GPU without nvcc (:func:`kernel_supported`).
     """
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; expected one of "
                          f"{BACKENDS}")
+    if backend == "xla":
+        return backend
     if backend == "auto":
         return "cuda" if kernel_supported() else "xla"
-    if backend == "cuda" and not kernel_supported():
+    if not kernel_supported():
         device = jax.devices()[0]
         raise RuntimeError(
             "backend='cuda' needs an NVIDIA GPU of compute capability 9.x "

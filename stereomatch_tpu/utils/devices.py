@@ -6,8 +6,8 @@ that picks the sharded SGM mode (parallel/ici_model.py).  A device that is
 not in the table is an error, never a default: a rate borrowed from
 another part would make every share derived from it wrong.
 
-Source: NVIDIA H100 Tensor Core GPU data sheet, SXM5 part, dense rates
-without sparsity, at the full 700 W power limit (a card capped below it
+Source: NVIDIA H100 Tensor Core GPU data sheet, SXM5 part, at the full
+700 W power limit (a card capped below it
 cannot hold its top clock under load; benchmarks print ``power.limit``).
 """
 
@@ -22,18 +22,12 @@ import jax
 class DeviceSpec:
     hbm_bytes_per_s: float      # device memory bandwidth
     link_bytes_per_s: float     # NVLink to the other cards, each way
-    f32_flops: float            # float32 outside the tensor cores
-    bf16_flops: float           # bf16 tensor cores, dense
-    memory_bytes: float
     source: str
 
 
 H100_SXM = DeviceSpec(
     hbm_bytes_per_s=3.35e12,
     link_bytes_per_s=450e9,
-    f32_flops=67e12,
-    bf16_flops=989e12,
-    memory_bytes=80e9,
     source="NVIDIA H100 Tensor Core GPU data sheet (SXM5)",
 )
 

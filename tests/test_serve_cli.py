@@ -719,29 +719,17 @@ def test_adaptive_batch_restore_clamps_non_pow2_cap():
 
 
 def test_dtype_auto_resolves_from_warmup_geometry():
-    """--dtype auto picks the measured f32/bf16 crossover from the
-    warmup geometry (requires --warmup); small frames stay float32 for
-    SGM and CVF alike (cli_common.recommended_dtype)."""
+    """--dtype auto is float32 at every geometry, for SGM and CVF alike,
+    with or without --warmup: bf16 stays an explicit opt-in."""
     from stereomatch_tpu.cli.serve import build_parser, make_server
 
-    args = build_parser().parse_args(
-        ["16", "--port", "0", "--backend", "xla", "--dtype", "auto",
-         "--warmup", "16x24"])
-    srv = make_server(args)
-    try:
-        assert srv.stm_state.args.dtype == "float32"      # teddy-class
-    finally:
-        srv.server_close()
-
-    args = build_parser().parse_args(
-        ["16", "--port", "0", "--backend", "xla", "--dtype", "auto",
-         "-am", "cvf", "--warmup", "16x24"])
-    srv = make_server(args)
-    try:
-        assert srv.stm_state.args.dtype == "float32"      # cvf, small
-    finally:
-        srv.server_close()
-
-    with pytest.raises(ValueError, match="warmup"):
-        make_server(build_parser().parse_args(
-            ["16", "--port", "0", "--dtype", "auto"]))
+    for extra in (["--warmup", "16x24"], ["-am", "cvf", "--warmup", "16x24"],
+                  []):
+        args = build_parser().parse_args(
+            ["16", "--port", "0", "--backend", "xla", "--dtype", "auto"]
+            + extra)
+        srv = make_server(args)
+        try:
+            assert srv.stm_state.args.dtype == "float32"
+        finally:
+            srv.server_close()

@@ -249,7 +249,7 @@ def test_unknown_backend_raises():
 
 def test_kernel_supported_needs_compute_capability_9(monkeypatch):
     """Hopper (9.x) with a buildable library runs the kernel; a Hopper
-    without nvcc falls back to XLA with a warning."""
+    without nvcc raises instead of falling back to the XLA scans."""
     class Dev:
         def __init__(self, platform, cc):
             self.platform, self.compute_capability = platform, cc
@@ -258,5 +258,19 @@ def test_kernel_supported_needs_compute_capability_9(monkeypatch):
     assert not backend.kernel_supported(Dev("gpu", "8.0"))
     assert not backend.kernel_supported(Dev("cpu", ""))
     monkeypatch.setattr(sgm_cuda, "buildable", lambda: False)
-    with pytest.warns(UserWarning, match="nvcc"):
-        assert not backend.kernel_supported(Dev("gpu", "9.0"))
+    with pytest.raises(RuntimeError, match="nvcc"):
+        backend.kernel_supported(Dev("gpu", "9.0"))
+    assert not backend.kernel_supported(Dev("gpu", "8.0"))
+
+
+@pytest.mark.parametrize("name", ["auto", "cuda"])
+def test_hopper_without_nvcc_raises_unless_xla(monkeypatch, name):
+    """On a Hopper GPU that cannot build the kernel, ``auto`` and
+    ``cuda`` raise; only an explicit ``xla`` runs the scans."""
+    class Hopper:
+        platform, compute_capability, device_kind = "gpu", "9.0", "H100"
+    monkeypatch.setattr(backend.jax, "devices", lambda *a: [Hopper()])
+    monkeypatch.setattr(sgm_cuda, "buildable", lambda: False)
+    with pytest.raises(RuntimeError, match="backend='xla'"):
+        backend.resolve_backend(name)
+    assert backend.resolve_backend("xla") == "xla"

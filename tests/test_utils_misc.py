@@ -108,16 +108,3 @@ def test_out_of_image_mask_ranks():
             jnp.zeros((n,), jnp.float32)))
     np.testing.assert_array_equal(out2[0], [1, 0, 0, 0, 0])
     np.testing.assert_array_equal(out2[3], [0, 0, 0, 0, 1])
-
-
-def test_recommended_dtype_geometry_aware():
-    """The dtype recommendation follows the H100 measurements — f32 at
-    teddy-class frames, bf16 at HD-class frames, for SGM and CVF alike."""
-    from stereomatch_tpu.cli_common import recommended_dtype
-
-    assert recommended_dtype(375, 450) == "float32"          # teddy
-    assert recommended_dtype(256, 512) == "float32"          # half-res
-    assert recommended_dtype(1024, 1280) == "bfloat16"       # HD-class
-    assert recommended_dtype(720, 1280) == "bfloat16"        # 720p
-    assert recommended_dtype(375, 450, aggregation="cvf") == "float32"
-    assert recommended_dtype(1024, 1280, aggregation="cvf") == "bfloat16"
